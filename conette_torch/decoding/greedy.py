@@ -1,0 +1,92 @@
+"""Greedy caption decoding over the static KV cache.
+
+Counterpart of ``conette_tpu/decoding/greedy.py`` (reference
+``nn/decoding/greedy.py:18-131``): min-length EOS masking and
+forbid-repetition masking before selection, finished rows emit the pad
+one-hot logits row, output logits (B, vocab, L), early exit once every row
+has emitted EOS.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from conette_torch.models.decoder import (
+    DecoderConfig,
+    Params,
+    decode_step,
+    init_cross,
+    init_self,
+)
+
+__all__ = ["GreedyResult", "greedy_search", "masked_logits"]
+
+NEG_INF = float("-inf")
+
+
+class GreedyResult(NamedTuple):
+    preds: torch.Tensor  # (B, max_pred_size) token ids (pad after eos)
+    logits: torch.Tensor  # (B, vocab, max_pred_size)
+
+
+def masked_logits(
+    logits: torch.Tensor,
+    step: int,
+    min_pred_size: int,
+    eos_id: int,
+    prev_multihot: torch.Tensor | None,
+    forbid_rep_mask: torch.Tensor | None,
+) -> torch.Tensor:
+    """Apply the min-length EOS mask and the forbid-repetition mask."""
+    if min_pred_size > 0 and step < min_pred_size:
+        logits = logits.clone()
+        logits[:, eos_id] = NEG_INF
+    if forbid_rep_mask is not None and prev_multihot is not None:
+        logits = logits.masked_fill(prev_multihot & forbid_rep_mask[None, :], NEG_INF)
+    return logits
+
+
+def greedy_search(
+    params: Params,
+    cfg: DecoderConfig,
+    memory: torch.Tensor,
+    memory_key_padding_mask: torch.Tensor,
+    bos_ids: torch.Tensor,
+    *,
+    min_pred_size: int = 0,
+    max_pred_size: int = 20,
+    forbid_rep_mask: torch.Tensor | None = None,
+) -> GreedyResult:
+    """
+    :param memory: (B, T_mem, d_model) projected frame embeddings.
+    :param memory_key_padding_mask: (B, T_mem) True = PAD.
+    :param bos_ids: (B,) per-example BOS ids (task-token conditioning).
+    """
+    b = memory.shape[0]
+    vocab = cfg.vocab_size
+    dev = memory.device
+    ctx = init_cross(params, cfg, memory, memory_key_padding_mask)
+    cache = init_self(cfg, b, max_pred_size, memory.dtype, dev)
+
+    pad_row = torch.full((vocab,), NEG_INF, device=dev)
+    pad_row[cfg.pad_id] = 0.0
+    toks = torch.full((b, max_pred_size), cfg.pad_id, dtype=torch.int64, device=dev)
+    logits_out = pad_row[None, :, None].repeat(b, 1, max_pred_size)
+
+    tok = bos_ids.to(device=dev, dtype=torch.int64)
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    mh = torch.nn.functional.one_hot(tok, vocab).bool()
+    for step in range(max_pred_size):
+        if bool(finished.all()):
+            break
+        raw = decode_step(params, cfg, cache, ctx, tok, step)
+        logits = masked_logits(raw, step, min_pred_size, cfg.eos_id, mh, forbid_rep_mask)
+        next_tok = logits.argmax(dim=-1)
+        logits_out[:, :, step] = torch.where(finished[:, None], pad_row[None, :], logits)
+        tok = torch.where(finished, cfg.pad_id, next_tok)
+        toks[:, step] = tok
+        finished = finished | (next_tok == cfg.eos_id)
+        mh = mh | torch.nn.functional.one_hot(tok, vocab).bool()
+    return GreedyResult(preds=toks, logits=logits_out)

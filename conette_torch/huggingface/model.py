@@ -1,0 +1,343 @@
+"""CoNeTTEModel — the public pretrained-model wrapper.
+
+Counterpart of ``conette_tpu/huggingface/model.py`` (reference
+``huggingface/model.py:38-289``):
+
+- ``CoNeTTEModel.from_pretrained(dir)`` restores config + tokenizer +
+  weights from a directory holding ``config.json`` and ``params.npz``, as
+  either package's ``save_pretrained`` writes it;
+- ``model(x, sr=..., task=..., beam_size=...)`` → ``CoNeTTEOutput`` with
+  ``cands / preds / lprobs / mult_* / tasks / tags / tags_probs``:
+  preprocess → AudioSet tags at threshold 0.3 → task → beam search (or
+  greedy for ``beam_size <= 1``) → detokenize.
+
+The model runs on the card unless the caller asks for the CPU: ``device``
+defaults to ``"cuda"``, and without a CUDA device construction raises.
+On the card, TF32 is switched off for matmuls and cuDNN convolutions
+(``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32``), so the float32 path computes in
+float32. With ``compute_dtype=torch.bfloat16`` the encoder runs its blocks
+and seams through the hand-written CUDA kernels; the decoder stays f32.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import Any, Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+from conette_torch.huggingface.audioset import load_audioset_names, probs_to_names
+from conette_torch.huggingface.config import CoNeTTEConfig
+from conette_torch.huggingface.convert import load_params_npz
+from conette_torch.huggingface.preprocessor import AudioInput, CoNeTTEPreprocessor
+from conette_torch.models.conette import (
+    ConetteConfig,
+    add_task_tokens,
+    build_forbid_rep_mask,
+    conette_init,
+    encode_audio,
+    forward_generate,
+    forward_greedy,
+    tasks_to_bos_ids,
+)
+from conette_torch.models.convnext import convnext_init
+from conette_torch.tokenization import AACTokenizer
+from conette_torch.weights import save_tree, to_torch
+
+pylog = logging.getLogger(__name__)
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """``None`` → ``cuda``. A CUDA device without CUDA raises: the model
+    never drops to the CPU unless asked for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "conette_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU."
+            )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+class CoNeTTEOutput(dict):
+    """Dict with attribute access (reference ``CoNeTTEOutput``)."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as err:
+            raise AttributeError(name) from err
+
+
+class CoNeTTEModel:
+    def __init__(
+        self,
+        config: CoNeTTEConfig,
+        *,
+        encoder_params: Any | None = None,
+        model_params: Any | None = None,
+        tokenizer: AACTokenizer | None = None,
+        seed: int = 1234,
+        compute_dtype: torch.dtype = torch.float32,
+        audioset_names: list[str] | None = None,
+        device: torch.device | str | None = None,
+        verbose: int = 0,
+    ) -> None:
+        self.config = config
+        self.verbose = verbose
+        self.device = resolve_device(device)
+
+        if tokenizer is None:
+            if config.tokenizer_state is not None:
+                tokenizer = AACTokenizer.from_txt_state(config.tokenizer_state)
+            else:
+                tokenizer = AACTokenizer()
+        self.tokenizer = tokenizer
+
+        self.task_token_ids: dict[str, int] = {}
+        if self.tokenizer.is_fit():
+            self.task_token_ids = add_task_tokens(
+                self.tokenizer, tuple(config.task_names), config.task_mode
+            )
+
+        fit = self.tokenizer.is_fit()
+        self.model_cfg = ConetteConfig(
+            vocab_size=max(self.tokenizer.get_vocab_size(), 8),
+            task_mode=config.task_mode,
+            task_names=tuple(config.task_names),
+            label_smoothing=config.label_smoothing,
+            mixup_alpha=config.mixup_alpha,
+            min_pred_size=config.min_pred_size,
+            max_pred_size=config.max_pred_size,
+            beam_size=config.beam_size,
+            nhead=config.nhead,
+            d_model=config.d_model,
+            num_decoder_layers=config.num_decoder_layers,
+            decoder_dropout_p=config.decoder_dropout_p,
+            dim_feedforward=config.dim_feedforward,
+            bos_id=self.tokenizer.bos_token_id if fit else 1,
+            eos_id=self.tokenizer.eos_token_id if fit else 2,
+            pad_id=self.tokenizer.pad_token_id if fit else 0,
+        )
+
+        gen = torch.Generator().manual_seed(seed)
+        if encoder_params is None:
+            encoder_params = convnext_init(gen)
+        if model_params is None:
+            model_params = conette_init(gen, self.model_cfg)
+        self.preprocessor = CoNeTTEPreprocessor(
+            to_torch(encoder_params, self.device),
+            device=self.device,
+            compute_dtype=compute_dtype,
+        )
+        self.params = to_torch(model_params, self.device)
+
+        self.forbid_rep_mask = None
+        if fit:
+            self.forbid_rep_mask = self._mask_tensor(
+                build_forbid_rep_mask(self.tokenizer, "content_words")
+            )
+
+        self.audioset_names = audioset_names or load_audioset_names()
+        self.default_task = list(config.task_names)[0] if config.task_names else "clotho"
+
+    @property
+    def tasks(self) -> list[str]:
+        """Valid task names."""
+        return list(self.config.task_names)
+
+    @property
+    def encoder_params(self) -> Any:
+        return self.preprocessor.params
+
+    def _mask_tensor(self, mask: np.ndarray | None) -> torch.Tensor | None:
+        return None if mask is None else torch.from_numpy(mask).to(self.device)
+
+    def _check_tasks(self, tasks: Iterable[str]) -> None:
+        for t in tasks:
+            if t not in self.config.task_names:
+                raise ValueError(f"Invalid task {t!r}. (not in {list(self.config.task_names)})")
+
+    def __call__(self, *args: Any, **kwargs: Any) -> CoNeTTEOutput:
+        return self.forward(*args, **kwargs)
+
+    @torch.inference_mode()
+    def forward(
+        self,
+        x: AudioInput,
+        sr: Union[None, int, Iterable[int]] = None,
+        x_shapes: Any = None,
+        preprocess: bool = True,
+        threshold: float = 0.3,
+        task: Union[str, list[str], None] = None,
+        beam_size: Optional[int] = None,
+        min_pred_size: Optional[int] = None,
+        max_pred_size: Optional[int] = None,
+        forbid_rep_mode: Optional[str] = None,
+    ) -> CoNeTTEOutput:
+        # validate tasks before the (expensive) preprocessing pass
+        if task is not None:
+            self._check_tasks([task] if isinstance(task, str) else list(task))
+
+        if preprocess:
+            batch = self.preprocessor(x, sr, x_shapes)
+            clip_probs = batch.pop("clip_probs").cpu().numpy()
+            tags = probs_to_names(clip_probs, threshold, self.audioset_names)
+        else:
+            batch = {
+                "audio": torch.as_tensor(x, dtype=torch.float32, device=self.device),
+                "audio_shape": torch.as_tensor(np.asarray(x_shapes), device=self.device),
+            }
+            clip_probs = tags = None
+
+        bsize = int(batch["audio"].shape[0])
+        if task is None:
+            tasks = [self.default_task] * bsize
+        elif isinstance(task, str):
+            tasks = [task] * bsize
+        elif len(list(task)) != bsize:
+            raise ValueError(f"Invalid number of tasks ({len(list(task))} vs {bsize} inputs)")
+        else:
+            tasks = list(task)
+        self._check_tasks(tasks)
+        datasets = [t.split("_")[0] for t in tasks]
+        sources = ["_".join(t.split("_")[1:]) if "_" in t else None for t in tasks]
+
+        if self.model_cfg.task_mode == "ds_src":
+            bos_np = tasks_to_bos_ids(self.model_cfg, self.task_token_ids, datasets, sources)
+        elif self.model_cfg.task_mode == "ds":
+            bos_np = tasks_to_bos_ids(self.model_cfg, self.task_token_ids, datasets)
+        else:
+            bos_np = np.full((bsize,), self.model_cfg.bos_id, np.int32)
+
+        beam = beam_size if beam_size is not None else self.config.beam_size
+        min_p = min_pred_size if min_pred_size is not None else self.config.min_pred_size
+        max_p = max_pred_size if max_pred_size is not None else self.config.max_pred_size
+        if forbid_rep_mode is None:
+            forbid = self.forbid_rep_mask
+        else:
+            forbid = self._mask_tensor(build_forbid_rep_mask(self.tokenizer, forbid_rep_mode))
+
+        lens = batch["audio_shape"][:, -1]
+        preds, lprobs, mult_preds, mult_lprobs = self._generate(
+            batch["audio"].float(), lens, torch.from_numpy(bos_np).to(self.device),
+            forbid, beam, min_p, max_p,
+        )
+        preds_np = preds.to(torch.int32).cpu().numpy()
+        mult_np = mult_preds.to(torch.int32).cpu().numpy()
+        out = CoNeTTEOutput(
+            cands=[self._decode_pred(row) for row in preds_np],
+            preds=preds_np,
+            lprobs=lprobs.cpu().numpy(),
+            mult_cands=[[self._decode_pred(r) for r in rows] for rows in mult_np],
+            mult_preds=mult_np,
+            mult_lprobs=mult_lprobs.cpu().numpy(),
+            tasks=tasks,
+        )
+        if clip_probs is not None:
+            out["tags_probs"] = clip_probs
+            out["tags"] = tags
+        return out
+
+    def _generate(self, audio, lens, bos_ids, forbid, beam: int, min_p: int, max_p: int):
+        memory, pad_mask = encode_audio(self.params, self.model_cfg, audio, lens)
+        if beam <= 1:
+            g = forward_greedy(
+                self.params, self.model_cfg, memory, pad_mask, bos_ids,
+                min_pred_size=min_p, max_pred_size=max_p, forbid_rep_mask=forbid,
+            )
+            lp = torch.log_softmax(g.logits.transpose(1, 2), dim=-1)
+            sel = lp.gather(-1, g.preds[..., None])[..., 0]
+            valid = g.preds != self.model_cfg.pad_id
+            avg = torch.where(valid, sel, 0.0).sum(dim=1) / valid.sum(dim=1).clamp_min(1)
+            return g.preds, avg, g.preds[:, None, :], avg[:, None]
+        res = forward_generate(
+            self.params, self.model_cfg, memory, pad_mask, bos_ids,
+            beam_size=beam, min_pred_size=min_p, max_pred_size=max_p,
+            forbid_rep_mask=forbid,
+        )
+        return res.best_preds, res.best_avg_lprobs, res.global_preds, res.global_avg_lprobs
+
+    def _decode_pred(self, ids: np.ndarray) -> str:
+        toks = []
+        for t in ids.tolist():
+            if t == self.model_cfg.eos_id:
+                break
+            toks.append(t)
+        return self.tokenizer.decode_single(toks)
+
+    # --------------------------------------------------------- persistence
+    def save_pretrained(self, save_directory: str) -> None:
+        os.makedirs(save_directory, exist_ok=True)
+        self.config.tokenizer_state = self.tokenizer.get_txt_state()
+        self.config.save_pretrained(save_directory)
+        save_tree(
+            os.path.join(save_directory, "params.npz"),
+            {"encoder": self.encoder_params, "model": self.params},
+        )
+        with open(os.path.join(save_directory, "audioset_names.json"), "w") as f:
+            json.dump(self.audioset_names, f)
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        pretrained_model_name_or_path: str,
+        device: torch.device | str | None = None,
+        verbose: int = 0,
+        **kwargs: Any,
+    ) -> "CoNeTTEModel":
+        """Load a directory with ``config.json`` and ``params.npz``."""
+        path = pretrained_model_name_or_path
+        if not os.path.isdir(path):
+            raise FileNotFoundError(
+                f"Model directory {path!r} not found (conette_torch loads local "
+                "directories only; download the snapshot first)."
+            )
+        if not os.path.isfile(os.path.join(path, "config.json")) and os.path.isdir(
+            os.path.join(path, "checkpoints", "best")
+        ):
+            raise NotImplementedError(
+                "Loading a train-run directory comes with a later slice of "
+                "conette_torch; export it with save_pretrained first."
+            )
+        config = CoNeTTEConfig.from_pretrained(path)
+
+        names_file = os.path.join(path, "audioset_names.json")
+        if os.path.isfile(names_file):
+            with open(names_file) as f:
+                audioset_names = json.load(f)
+        else:
+            audioset_names = load_audioset_names([path])
+
+        encoder_params = model_params = None
+        npz = os.path.join(path, "params.npz")
+        if os.path.isfile(npz):
+            tree = load_params_npz(npz)
+            encoder_params, model_params = tree["encoder"], tree["model"]
+        elif any(
+            os.path.isfile(os.path.join(path, f))
+            for f in ("model.safetensors", "pytorch_model.bin")
+        ):
+            raise NotImplementedError(
+                "Converting a reference torch checkpoint comes with a later "
+                "slice of conette_torch; convert it with conette_tpu and "
+                "save_pretrained (params.npz) first."
+            )
+        else:
+            pylog.warning(f"No weights found in {path!r}; initializing randomly.")
+        return cls(
+            config,
+            encoder_params=encoder_params,
+            model_params=model_params,
+            audioset_names=audioset_names,
+            device=device,
+            verbose=verbose,
+            **kwargs,
+        )

@@ -1,0 +1,144 @@
+"""CoNeTTEPreprocessor — audio loading + the frozen ConvNeXt feature encoder.
+
+Counterpart of ``conette_tpu/huggingface/preprocessor.py`` (reference
+``huggingface/preprocessor.py:21-154``): accepts file paths, arrays, or
+lists of either with per-item sample rates; resamples to 32 kHz on the host,
+averages channels, pads to a length bucket and stacks, then runs the
+encoder on the model's device, returning ``{"audio": (B, T, 768),
+"audio_shape": (B, 2), "clip_probs": (B, 527)}``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterable, Union
+
+import numpy as np
+import torch
+
+from conette_torch.models.convnext import convnext_apply
+from conette_torch.ops.resample import resample_numpy
+from conette_torch.utils.audio_io import load_audio
+
+TARGET_SR = 32_000
+FEAT_SIZE = 768
+
+# Padding buckets (seconds at 32 kHz). Clips longer than the last bucket
+# are padded up to the next 5 s multiple.
+BUCKETS_S = (1, 2, 3, 5, 7, 10, 15, 20, 30)
+
+ArrayLike = Union[np.ndarray, torch.Tensor]
+AudioInput = Union[str, ArrayLike, Iterable[str], Iterable[ArrayLike]]
+
+
+def bucket_length(n_samples: int, sr: int = TARGET_SR) -> int:
+    for s in BUCKETS_S:
+        if n_samples <= s * sr:
+            return s * sr
+    step = 5 * sr
+    return ((n_samples + step - 1) // step) * step
+
+
+class CoNeTTEPreprocessor:
+    """Frozen audio tagger frontend over the ConvNeXt parameter tree
+    ``params`` (tensors on ``device``)."""
+
+    def __init__(
+        self,
+        params: Any,
+        *,
+        device: torch.device | str,
+        compute_dtype: torch.dtype = torch.float32,
+    ) -> None:
+        self.params = params
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+
+    @property
+    def target_sr(self) -> int:
+        return TARGET_SR
+
+    @property
+    def feat_size(self) -> int:
+        return FEAT_SIZE
+
+    def load_resample(
+        self,
+        x: AudioInput,
+        sr: Union[None, int, Iterable[int]] = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """→ (waveforms (B, T_max) float32 mono at 32 kHz, lengths (B,))."""
+        if isinstance(x, str):
+            x = [x]
+        if isinstance(x, Iterable) and not hasattr(x, "shape"):
+            x = list(x)
+
+        if isinstance(x, list) and len(x) > 0 and isinstance(x[0], str):
+            loaded = [load_audio(p) for p in x]
+            waves = [w for w, _ in loaded]
+            srs = [s for _, s in loaded]
+        else:
+            if hasattr(x, "shape"):
+                arr = _as_numpy(x)
+                if arr.ndim == 1:
+                    arr = arr[None, None, :]
+                elif arr.ndim == 2:
+                    arr = arr[None, :, :]
+                elif arr.ndim != 3:
+                    raise ValueError(f"Invalid audio array shape {arr.shape}")
+                waves = [arr[i] for i in range(arr.shape[0])]
+            else:
+                waves = [_as_numpy(w) for w in x]
+                waves = [w[None, :] if w.ndim == 1 else w for w in waves]
+            if sr is None:
+                srs = [TARGET_SR] * len(waves)
+            elif isinstance(sr, int):
+                srs = [sr] * len(waves)
+            else:
+                srs = list(sr)
+            if len(srs) == 1 and len(waves) != 1:
+                srs = srs * len(waves)
+        if len(waves) != len(srs) or len(waves) == 0:
+            raise ValueError(f"Mismatched audio/sr counts ({len(waves)}/{len(srs)}).")
+
+        mono: list[np.ndarray] = []
+        for w, s in zip(waves, srs):
+            if w.ndim != 2:
+                raise ValueError(f"Expected (channels, time) clip, got {w.shape}")
+            if s != TARGET_SR:
+                w = resample_numpy(w, int(s), TARGET_SR)
+            mono.append(w.mean(axis=0).astype(np.float32))
+
+        lens = np.asarray([len(m) for m in mono], np.int64)
+        batch = np.zeros((len(mono), bucket_length(int(lens.max()))), np.float32)
+        for i, m in enumerate(mono):
+            batch[i, : len(m)] = m
+        return batch, lens
+
+    @torch.inference_mode()
+    def __call__(
+        self,
+        x: AudioInput,
+        sr: Union[None, int, Iterable[int]] = None,
+        x_shapes: Any = None,
+    ) -> dict[str, torch.Tensor]:
+        wav, lens = self.load_resample(x, sr)
+        if x_shapes is not None:
+            lens = np.asarray(x_shapes)[:, -1]
+        outs = convnext_apply(
+            self.params,
+            torch.from_numpy(wav).to(self.device),
+            torch.from_numpy(np.asarray(lens)).to(self.device),
+            compute_dtype=self.compute_dtype,
+        )
+        n = outs["frame_embs_lens"]
+        return {
+            "audio": outs["frame_embs"].transpose(1, 2),  # (B, T, 768)
+            "audio_shape": torch.stack([torch.full_like(n, FEAT_SIZE), n], dim=1),
+            "clip_probs": outs["clipwise_output"],
+        }
+
+
+def _as_numpy(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)

@@ -1,0 +1,253 @@
+"""Task-conditioned transformer caption decoder with a static KV cache.
+
+Counterpart of ``conette_tpu/models/decoder.py``: Embedding(vocab, d_model,
+padding_idx=pad) scaled by sqrt(d_model) + sinusoidal positions → post-norm
+decoder layers (torch ``TransformerDecoderLayer(norm_first=False)``
+semantics, GELU, eps 1e-5) → Linear(d_model, vocab), batch-first.
+
+Incremental decoding keeps a physical per-row self-attention cache: one
+(rows, 2, H, L_max, dh) tensor per layer holding K and V, written in place
+at ``step``. Beam search reorders it by parent with one index gather per
+layer (:func:`reorder_cache`). The JAX package's "ancestry" map and its
+dense one-hot reorder matmul were formulations for the TPU; at f32 they
+give the same result as this gather. Cross-attention K/V are computed once
+per clip (:class:`CrossContext`) and shared by the clip's beams.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from conette_torch.models.layers import (
+    Params,
+    embedding,
+    gelu,
+    layer_norm,
+    linear,
+    linear_init,
+    xavier_uniform,
+)
+
+LN_EPS = 1e-5
+NEG_INF = -1e30
+
+
+class DecoderConfig(NamedTuple):
+    vocab_size: int
+    d_model: int = 256
+    nhead: int = 8
+    num_layers: int = 6
+    dim_feedforward: int = 2048
+    dropout_p: float = 0.2
+    bos_id: int = 1
+    eos_id: int = 2
+    pad_id: int = 0
+    max_len: int = 5000  # positional table size (reference maxlen=5000)
+
+
+def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
+    """Sin/cos positional table (sin on even dims, cos on odd dims)."""
+    den = np.exp(-np.arange(0, d_model, 2, dtype=np.float64) * math.log(10000.0) / d_model)
+    pos = np.arange(max_len, dtype=np.float64)[:, None]
+    table = np.zeros((max_len, d_model), dtype=np.float64)
+    table[:, 0::2] = np.sin(pos * den)
+    table[:, 1::2] = np.cos(pos * den)
+    return table.astype(np.float32)
+
+
+# --------------------------------------------------------------------- init
+def attention_init(gen: torch.Generator, d_model: int) -> Params:
+    """torch MultiheadAttention init: xavier-uniform packed in-projection,
+    zero in-projection bias, default out-projection init with zero bias."""
+    wq, wk, wv = xavier_uniform(gen, (d_model, 3 * d_model)).split(d_model, dim=1)
+    out = linear_init(gen, d_model, d_model, init="torch")
+    out["bias"] = torch.zeros(d_model)
+    zeros = torch.zeros(d_model)
+    return {
+        "q": {"weight": wq.contiguous(), "bias": zeros.clone()},
+        "k": {"weight": wk.contiguous(), "bias": zeros.clone()},
+        "v": {"weight": wv.contiguous(), "bias": zeros.clone()},
+        "out": out,
+    }
+
+
+def decoder_init(gen: torch.Generator, cfg: DecoderConfig) -> Params:
+    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen)
+    emb[cfg.pad_id] = 0.0
+
+    def norm() -> Params:
+        return {"weight": torch.ones(cfg.d_model), "bias": torch.zeros(cfg.d_model)}
+
+    return {
+        "emb": {"weight": emb},
+        "classifier": linear_init(gen, cfg.d_model, cfg.vocab_size, init="torch"),
+        "layers": [
+            {
+                "self_attn": attention_init(gen, cfg.d_model),
+                "cross_attn": attention_init(gen, cfg.d_model),
+                "linear1": linear_init(gen, cfg.d_model, cfg.dim_feedforward, init="torch"),
+                "linear2": linear_init(gen, cfg.dim_feedforward, cfg.d_model, init="torch"),
+                "norm1": norm(),
+                "norm2": norm(),
+                "norm3": norm(),
+            }
+            for _ in range(cfg.num_layers)
+        ],
+    }
+
+
+# ---------------------------------------------------------------- attention
+def _split_heads(x: torch.Tensor, nhead: int) -> torch.Tensor:
+    b, l, d = x.shape
+    return x.reshape(b, l, nhead, d // nhead).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, l, dh = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * dh)
+
+
+def _softmax_f32(scores: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(scores.float(), dim=-1)
+
+
+def attention(
+    params: Params,
+    q_in: torch.Tensor,
+    kv_in: torch.Tensor,
+    nhead: int,
+    *,
+    mask: torch.Tensor | None = None,
+    key_padding_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Multi-head attention. ``mask`` (Lq, Lk) bool, True = blocked;
+    ``key_padding_mask`` (B, Lk) bool, True = PAD."""
+    dh = q_in.shape[-1] // nhead
+    q = _split_heads(linear(params["q"], q_in), nhead)
+    k = _split_heads(linear(params["k"], kv_in), nhead)
+    v = _split_heads(linear(params["v"], kv_in), nhead)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(dh)
+    if mask is not None:
+        scores = scores.masked_fill(mask[None, None], NEG_INF)
+    if key_padding_mask is not None:
+        scores = scores.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
+    w = _softmax_f32(scores).to(q.dtype)
+    out = torch.matmul(w.float(), v.float()).to(q_in.dtype)
+    return linear(params["out"], _merge_heads(out))
+
+
+# ------------------------------------------------------------- cached decode
+class CrossContext(NamedTuple):
+    """Loop-invariant cross-attention state, stored per clip: the beams of
+    one clip share its K/V."""
+
+    cross_k: torch.Tensor  # (num_layers, B, H, T_mem, dh)
+    cross_v: torch.Tensor  # (num_layers, B, H, T_mem, dh)
+    memory_pad: torch.Tensor  # (B, T_mem) True = PAD
+
+
+def init_cross(
+    params: Params,
+    cfg: DecoderConfig,
+    memory: torch.Tensor,
+    memory_key_padding_mask: torch.Tensor,
+) -> CrossContext:
+    """Precompute per-clip cross-attention K/V from projected memory."""
+    ks, vs = [], []
+    for layer in params["layers"]:
+        ca = layer["cross_attn"]
+        ks.append(_split_heads(linear(ca["k"], memory), cfg.nhead))
+        vs.append(_split_heads(linear(ca["v"], memory), cfg.nhead))
+    return CrossContext(torch.stack(ks), torch.stack(vs), memory_key_padding_mask)
+
+
+def init_self(
+    cfg: DecoderConfig, rows: int, max_steps: int, dtype: torch.dtype, device
+) -> list[torch.Tensor]:
+    """Zeroed self-attention caches: per layer one (rows, 2, H, L, dh)
+    tensor, index 0 of axis 1 holding K and index 1 holding V."""
+    dh = cfg.d_model // cfg.nhead
+    return [
+        torch.zeros((rows, 2, cfg.nhead, max_steps, dh), dtype=dtype, device=device)
+        for _ in range(cfg.num_layers)
+    ]
+
+
+def reorder_cache(cache: list[torch.Tensor], parent: torch.Tensor) -> list[torch.Tensor]:
+    """Gather the rows by per-clip beam parents.
+
+    :param parent: (B, beam) parent beam within each clip; rows are laid out
+        clip-major (all beams of clip 0 first).
+    """
+    b, k = parent.shape
+    flat = (parent + torch.arange(b, device=parent.device)[:, None] * k).reshape(-1)
+    return [buf.index_select(0, flat) for buf in cache]
+
+
+def decode_step(
+    params: Params,
+    cfg: DecoderConfig,
+    cache: list[torch.Tensor],
+    ctx: CrossContext,
+    token_ids: torch.Tensor,
+    step: int,
+) -> torch.Tensor:
+    """One incremental decode step; writes position ``step`` of ``cache``
+    in place.
+
+    :param token_ids: (B·beam,) current input tokens in clip-major order;
+        ``ctx`` is at clip batch B, ``beam = len(token_ids) // B``.
+    :returns: (B·beam, vocab) f32 logits for the next token.
+    """
+    b = token_ids.shape[0]
+    b_ctx = ctx.memory_pad.shape[0]
+    if b % b_ctx:
+        raise ValueError(
+            f"token batch {b} is not a multiple of the cross-context clip batch {b_ctx}"
+        )
+    beams = b // b_ctx
+    dh = cfg.d_model // cfg.nhead
+    max_steps = cache[0].shape[3]
+    dtype = ctx.cross_k.dtype
+
+    x = embedding(params["emb"], token_ids, dtype=dtype) * math.sqrt(cfg.d_model)
+    pos = torch.from_numpy(sinusoidal_positions(step + 1, cfg.d_model)[step])
+    x = (x + pos.to(x.device, dtype))[:, None, :]  # (B, 1, D)
+    invalid = torch.arange(max_steps, device=x.device) > step  # (L,)
+
+    for i, layer in enumerate(params["layers"]):
+        sa = layer["self_attn"]
+        qkv = linear(
+            {
+                "weight": torch.cat([sa["q"]["weight"], sa["k"]["weight"], sa["v"]["weight"]], 1),
+                "bias": torch.cat([sa["q"]["bias"], sa["k"]["bias"], sa["v"]["bias"]]),
+            },
+            x,
+        )
+        q, k_new, v_new = (_split_heads(t, cfg.nhead) for t in qkv.split(cfg.d_model, dim=-1))
+        buf = cache[i]
+        buf[:, 0, :, step] = k_new[:, :, 0]
+        buf[:, 1, :, step] = v_new[:, :, 0]
+        scores = torch.matmul(q.float(), buf[:, 0].float().transpose(-1, -2)) / math.sqrt(dh)
+        w = _softmax_f32(scores.masked_fill(invalid, NEG_INF)).to(q.dtype)
+        sa_out = torch.matmul(w.float(), buf[:, 1].float()).to(x.dtype)
+        x = layer_norm(layer["norm1"], x + linear(sa["out"], _merge_heads(sa_out)), LN_EPS)
+
+        ca = layer["cross_attn"]
+        qc = _split_heads(linear(ca["q"], x), cfg.nhead)  # (B·beam, H, 1, dh)
+        qb = qc[:, :, 0, :].reshape(b_ctx, beams, cfg.nhead, dh)
+        scores = torch.einsum("bkhd,bhmd->bkhm", qb.float(), ctx.cross_k[i].float()) / math.sqrt(dh)
+        scores = scores.masked_fill(ctx.memory_pad[:, None, None, :], NEG_INF)
+        w = _softmax_f32(scores).to(qc.dtype)
+        ca_out = torch.einsum("bkhm,bhmd->bkhd", w.float(), ctx.cross_v[i].float())
+        ca_out = ca_out.reshape(b, cfg.nhead, 1, dh).to(x.dtype)
+        x = layer_norm(layer["norm2"], x + linear(ca["out"], _merge_heads(ca_out)), LN_EPS)
+
+        ff = linear(layer["linear2"], gelu(linear(layer["linear1"], x)))
+        x = layer_norm(layer["norm3"], x + ff, LN_EPS)
+
+    return linear(params["classifier"], x[:, 0, :]).float()

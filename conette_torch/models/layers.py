@@ -1,0 +1,162 @@
+"""Primitive NN layers as plain functions over parameter trees of tensors.
+
+Counterpart of ``conette_tpu/models/layers.py`` with the same layouts and
+numerics, so both packages load one weight tree:
+
+- parameters are nested dicts of tensors: linear weights are ``(in, out)``,
+  conv weights HWIO, activations NHWC;
+- products accumulate in float32: operands are rounded to the input dtype
+  first (as JAX casts the weight to ``x.dtype``), then multiplied as f32,
+  which is exact for bf16 operands, so a bf16 call equals JAX's
+  ``preferred_element_type=float32`` contraction up to summation order;
+- ``layer_norm`` takes float32 statistics; ``gelu`` is the exact erf form.
+
+A float32 convolution on the card runs through cuDNN, which defaults to
+TF32; ``CoNeTTEModel`` turns TF32 off on the card so these stay float32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Sequence
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------- init utils
+def trunc_normal(
+    gen: torch.Generator, shape: Sequence[int], std: float = 0.02
+) -> torch.Tensor:
+    """Truncated normal on [-2std, 2std] (timm convention)."""
+    out = torch.empty(tuple(shape), dtype=torch.float32)
+    return torch.nn.init.trunc_normal_(out, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+def uniform_fan_in(
+    gen: torch.Generator, shape: Sequence[int], fan_in: int
+) -> torch.Tensor:
+    """torch nn.Linear default init: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    return (torch.rand(tuple(shape), generator=gen) * 2.0 - 1.0) * bound
+
+
+def xavier_uniform(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    fan_in, fan_out = shape[-2], shape[-1]
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    return (torch.rand(tuple(shape), generator=gen) * 2.0 - 1.0) * bound
+
+
+def linear_init(
+    gen: torch.Generator,
+    in_features: int,
+    out_features: int,
+    init: str = "torch",
+    std: float = 0.02,
+) -> Params:
+    if init == "torch":
+        weight = uniform_fan_in(gen, (in_features, out_features), in_features)
+        bias = uniform_fan_in(gen, (out_features,), in_features)
+    elif init == "trunc_normal":
+        weight = trunc_normal(gen, (in_features, out_features), std)
+        bias = torch.zeros(out_features)
+    elif init == "xavier":
+        weight = xavier_uniform(gen, (in_features, out_features))
+        bias = torch.zeros(out_features)
+    else:
+        raise ValueError(f"Unknown linear {init=}")
+    return {"weight": weight, "bias": bias}
+
+
+def layer_norm_init(dim: int) -> Params:
+    return {"weight": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def batch_norm_init(dim: int) -> Params:
+    return {
+        "weight": torch.ones(dim),
+        "bias": torch.zeros(dim),
+        "running_mean": torch.zeros(dim),
+        "running_var": torch.ones(dim),
+    }
+
+
+def conv2d_init(
+    gen: torch.Generator,
+    in_chans: int,
+    out_chans: int,
+    kernel_size: tuple[int, int],
+    groups: int = 1,
+    init: str = "trunc_normal",
+    std: float = 0.02,
+) -> Params:
+    kh, kw = kernel_size
+    shape = (kh, kw, in_chans // groups, out_chans)  # HWIO
+    if init == "trunc_normal":
+        return {"weight": trunc_normal(gen, shape, std), "bias": torch.zeros(out_chans)}
+    if init == "torch":
+        fan_in = (in_chans // groups) * kh * kw
+        weight = uniform_fan_in(gen, shape, fan_in)
+        return {"weight": weight, "bias": uniform_fan_in(gen, (out_chans,), fan_in)}
+    raise ValueError(f"Unknown conv {init=}")
+
+
+# ------------------------------------------------------------------- layers
+def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W + b`` with f32 accumulation and f32 bias, cast to ``x.dtype``."""
+    w = params["weight"].to(x.dtype).float()
+    y = torch.matmul(x.float(), w) + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, computed in float32."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * params["weight"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def batch_norm_inference(
+    params: Params, x: torch.Tensor, axis: int = -1, eps: float = 1e-5
+) -> torch.Tensor:
+    """Inference-mode BN over the ``axis`` channel dimension with running
+    stats (torch ``BatchNorm2d.eval()`` semantics)."""
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    scale = params["weight"].float() * torch.rsqrt(params["running_var"].float() + eps)
+    shift = params["bias"].float() - params["running_mean"].float() * scale
+    return (x.float() * scale.reshape(shape) + shift.reshape(shape)).to(x.dtype)
+
+
+def conv2d(
+    params: Params,
+    x: torch.Tensor,
+    stride: tuple[int, int] = (1, 1),
+    padding: tuple[tuple[int, int], tuple[int, int]] = ((0, 0), (0, 0)),
+    groups: int = 1,
+) -> torch.Tensor:
+    """NHWC conv with an HWIO kernel; f32 accumulation, VALID beyond the
+    explicit zero ``padding`` (odd extents floor, as XLA's conv does)."""
+    w = params["weight"].to(x.dtype).float().permute(3, 2, 0, 1)  # OIHW
+    (t0, t1), (f0, f1) = padding
+    xc = x.float().permute(0, 3, 1, 2)  # NCHW
+    if t0 or t1 or f0 or f1:
+        xc = F.pad(xc, (f0, f1, t0, t1))
+    y = F.conv2d(xc, w, params["bias"].float(), stride=stride, groups=groups)
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU (torch ``nn.GELU`` default)."""
+    return F.gelu(x)
+
+
+def embedding(
+    params: Params, ids: torch.Tensor, dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    return params["weight"].to(dtype)[ids]

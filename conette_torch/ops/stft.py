@@ -1,0 +1,62 @@
+"""STFT / power spectrogram as one matmul against a windowed DFT basis.
+
+Counterpart of ``conette_tpu/ops/stft.py``: the reference's
+``torchlibrosa.stft.Spectrogram`` (n_fft 1024, hop 320, periodic Hann
+window, center=True, reflect padding, power 2), computed as
+``frames (B, T, n_fft) @ basis (n_fft, 2·n_freqs)`` followed by re² + im².
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["hann_window", "dft_basis", "frame_signal", "power_spectrogram"]
+
+
+def hann_window(win_length: int, dtype: np.dtype = np.float32) -> np.ndarray:
+    """Periodic ("fftbins") Hann window, as used by librosa/torchlibrosa."""
+    n = np.arange(win_length, dtype=np.float64)
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+    return w.astype(dtype)
+
+
+@lru_cache(maxsize=8)
+def dft_basis(n_fft: int, dtype: str = "float32") -> np.ndarray:
+    """Windowed real-DFT basis, shape (n_fft, 2*(n_fft//2+1)): column k holds
+    ``win[n]·cos(2πkn/N)`` (real part), column k+n_freqs ``win[n]·-sin(…)``."""
+    n_freqs = n_fft // 2 + 1
+    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(n_freqs, dtype=np.float64)[None, :]
+    angle = 2.0 * np.pi * k * n / n_fft
+    win = hann_window(n_fft, np.float64)[:, None]
+    basis = np.concatenate([win * np.cos(angle), win * -np.sin(angle)], axis=1)
+    return basis.astype(dtype)
+
+
+def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """(B, T) waveform → (B, 1 + T // hop, n_fft) frames, center reflect pad."""
+    pad = n_fft // 2
+    xp = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    return xp.unfold(-1, n_fft, hop_length)
+
+
+def power_spectrogram(
+    x: torch.Tensor,
+    n_fft: int = 1024,
+    hop_length: int = 320,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """(B, T) waveform → (B, n_frames, n_freqs) float32 power spectrogram.
+
+    Frames and basis are rounded to ``compute_dtype``, then multiplied with
+    float32 accumulation (exact products for bf16 operands)."""
+    n_freqs = n_fft // 2 + 1
+    frames = frame_signal(x, n_fft, hop_length).to(compute_dtype).float()
+    basis = torch.from_numpy(dft_basis(n_fft)).to(x.device, compute_dtype).float()
+    spec = torch.matmul(frames, basis)
+    real, imag = spec[..., :n_freqs], spec[..., n_freqs:]
+    return real * real + imag * imag

@@ -1,0 +1,62 @@
+"""The weight bridge: numpy parameter pytrees ↔ the port's tensor trees.
+
+Both packages keep their weights as the same nested dict/list tree
+(``{"encoder": convnext params, "model": conette params}`` in
+``params.npz``), with the same layouts: ``(in, out)`` linear weights, HWIO
+conv weights. ``conette_tpu`` holds numpy/JAX arrays in it, the port holds
+tensors. This module maps one to the other leaf by leaf without touching
+the bits, so a ``params.npz`` written by either package loads unchanged in
+the other, and ``to_numpy(to_torch(tree))`` equals ``tree`` bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+
+from conette_torch.huggingface.convert import load_params_npz, save_params_npz
+
+__all__ = ["map_tree", "to_torch", "to_numpy", "load_tree", "save_tree"]
+
+
+def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict/list/tuple tree."""
+    if isinstance(tree, Mapping):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def to_torch(tree: Any, device: torch.device | str = "cpu") -> Any:
+    """numpy (or array-like) leaves → tensors on ``device``, dtype kept."""
+
+    def leaf(a: Any) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+
+    return map_tree(leaf, tree)
+
+
+def to_numpy(tree: Any) -> Any:
+    """Tensor leaves → numpy arrays on the host, dtype kept."""
+
+    def leaf(t: Any) -> np.ndarray:
+        if isinstance(t, torch.Tensor):
+            return t.detach().cpu().numpy().copy()
+        return np.asarray(t)
+
+    return map_tree(leaf, tree)
+
+
+def load_tree(path: str, device: torch.device | str = "cpu") -> Any:
+    """Read a ``params.npz`` (either package's) as a tensor tree."""
+    return to_torch(load_params_npz(path), device)
+
+
+def save_tree(path: str, tree: Any) -> None:
+    """Write a tensor tree as a ``params.npz`` both packages read."""
+    save_params_npz(path, to_numpy(tree))
