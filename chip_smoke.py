@@ -8,17 +8,26 @@ Phases (any failure exits non-zero):
 1. print the card (``nvidia-smi`` name and power limit), require sm_90,
    build the CUDA kernels from ``conette_torch/csrc`` into ``build/``;
 2. hold each kernel against its plain PyTorch version at every main-path
-   shape (bf16, batch 8, layer scale N(0, 0.1)), max relative error < 0.02,
-   and time both with CUDA events (median of 25 runs after a warm-up);
+   shape (batch 8; block and seam in bf16 with layer scale N(0, 0.1), max
+   relative error < 0.02; log-mel on 8 x 10 s of waveform at f32 and bf16
+   compute, with and without the bn0 affine, within the tolerances at
+   ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``), and time both with CUDA
+   events (median of 25 runs after a warm-up), and the log-mel kernel also
+   against the unfused bf16 frontend it replaces;
 3. build a full-width CoNeTTE (ConvNeXt-Tiny, 6-layer 256-wide decoder,
    8 heads, ff 2048, beam 3, 3..20 tokens) from a seed, with a tokenizer
    fitted on ~4000 generated words, ``save_pretrained`` it, load it back
    with ``conette_torch.conette(path, compute_dtype=torch.bfloat16)`` and
    answer 3 requests of 8 clips of 10 s at 44.1 kHz; each request must run
-   18 block and 3 seam kernel launches; the kernel encoder is held against
-   the plain bf16 encoder on one request, and the f32 path on the card
-   against the f32 path on the CPU on two short clips;
-4. print a details JSON line, the card line, the ``kernels`` JSON line
+   1 log-mel, 18 block and 3 seam kernel launches; the kernel encoder is
+   held against the plain bf16 encoder on one request, and the f32 path on
+   the card against the f32 path on the CPU on two short clips;
+4. serve a corpus of 16 WAV and FLAC files (0.8..9.5 s at 44.1 and 32 kHz,
+   4 length buckets) with ``conette_torch.serving``: ``warmup`` for the
+   buckets, then ``caption_corpus(..., batch_size=8)`` with a task per
+   clip; results in input order with their tasks, and every batch runs
+   1 + 18 + 3 kernel launches;
+5. print a details JSON line, the card line, the ``kernels`` JSON line
    and, last, the device JSON line.
 """
 
@@ -39,8 +48,16 @@ BATCH = 8
 STAGES = [(252, 56, 96, 3), (126, 28, 192, 3), (63, 14, 384, 9), (31, 7, 768, 3)]
 SEAMS = [(252, 56, 96), (126, 28, 192), (63, 14, 384)]
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL = 0.02
+LOGMEL_SAMPLES = 320_000  # 10 s at 32 kHz -> 1001 frames
+# log-mel, in dB: at f32 the JAX envelope of its kernel; at bf16 the kernel
+# and its plain version round at the same points and differ by f32 summation
+# order, which can flip one bf16 rounding of a power bin (about 0.017 dB on
+# the mel bins that hold it); the affine multiplies differences by its scale
+LOGMEL_F32_TOL = dict(atol=2e-3, rtol=1e-4)
+LOGMEL_BF16_ATOL = 0.05
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -62,8 +79,8 @@ def time_ms(fn, runs: int = 25) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -109,7 +126,7 @@ def check_kernels(dev) -> list[dict]:
         bms, by = bound_ms(flops, nbytes)
         records.append(dict(
             kernel="convnext_block", shape=[BATCH, t, f, c], per_request=depth,
-            max_abs_err=abs_err, max_rel_err=rel_err,
+            max_abs_err=abs_err, max_rel_err=rel_err, ok=rel_err < TOL,
             ms=time_ms(lambda: fused_convnext_block(x, *args)),
             plain_ms=time_ms(lambda: convnext_block_reference(x, *args)),
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
@@ -130,17 +147,87 @@ def check_kernels(dev) -> list[dict]:
         bms, by = bound_ms(flops, nbytes)
         records.append(dict(
             kernel="downsample", shape=[BATCH, t, f, c], per_request=1,
-            max_abs_err=abs_err, max_rel_err=rel_err,
+            max_abs_err=abs_err, max_rel_err=rel_err, ok=rel_err < TOL,
             ms=time_ms(lambda: fused_downsample(x, *args)),
             plain_ms=time_ms(lambda: downsample_reference(x, *args)),
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
         ))
+    records += check_logmel(dev, gen)
     for r in records:
-        print(f"  {r['kernel']:15s} {r['shape']}: rel err {r['max_rel_err']:.2e}, "
+        print(f"  {r['kernel']:15s} {r['shape']}{r.get('variant', '')}: abs err "
+              f"{r['max_abs_err']:.2e}, rel err {r['max_rel_err']:.2e}, "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
-        if not r["max_rel_err"] < TOL:
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f", unfused frontend {r['unfused_ms']:.4f} ms" if "unfused_ms" in r else ""),
+              flush=True)
+        if not r["ok"]:
             raise AssertionError(f"{r['kernel']} at {r['shape']} disagrees with its plain version")
+    return records
+
+
+def random_bn0(gen, dev) -> dict:
+    import torch
+
+    return {
+        "weight": randn(gen, (224,), 0.2, dev, shift=1.0),
+        "bias": randn(gen, (224,), 0.3, dev),
+        "running_mean": randn(gen, (224,), 5.0, dev, shift=-40.0),
+        "running_var": torch.rand((224,), generator=gen).to(dev) * 150 + 50,
+    }
+
+
+def check_logmel(dev, gen) -> list[dict]:
+    """The log-mel kernel against ``logmel_reference`` on 8 x 10 s of
+    waveform (noise and a chirp; the last clip ends in a second of
+    silence), at both compute types, with and without the bn0 affine. The
+    main path runs bf16 with the affine (1 launch a request); the unfused
+    bf16 frontend that route replaces (``logmel_spectrogram`` +
+    ``batch_norm_inference``) is timed beside it."""
+    import torch
+
+    from conette_torch.kernels.logmel import fused_logmel, logmel_reference
+    from conette_torch.models.convnext import bn0_affine
+    from conette_torch.models.layers import batch_norm_inference
+    from conette_torch.ops.frontend import logmel_spectrogram
+
+    n = LOGMEL_SAMPLES
+    t = torch.arange(n, dtype=torch.float64) / 32000
+    chirp = (0.3 * torch.sin(2 * torch.pi * 440 * t * (1 + t))).float()
+    x = (torch.randn((BATCH, n), generator=gen) * 0.05 + chirp).to(dev)
+    x[-1, n - 32000:] = 0.0
+    bn = random_bn0(gen, dev)
+    scale, shift = bn0_affine(bn)
+    frames = 1 + n // 320
+    flops = BATCH * (2 * frames * 1024 * 2 * 513 + 2 * frames * 513 * 224)
+    records = []
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for affine in (True, False):
+            kw = dict(bn_scale=scale, bn_shift=shift) if affine else {}
+            got = fused_logmel(x, compute_dtype=dtype, **kw)
+            want = logmel_reference(x, compute_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            abs_err, rel_err = errors(want, got)
+            if dtype == torch.float32:
+                ok = bool(torch.allclose(got, want, **LOGMEL_F32_TOL))
+            else:
+                gain = float(scale.abs().max()) if affine else 1.0
+                ok = abs_err <= LOGMEL_BF16_ATOL * gain
+            width = 2 if dtype == torch.bfloat16 else 4
+            nbytes = BATCH * n * 4 + BATCH * frames * 224 * 4 + width * (1024 * 1026 + 513 * 224)
+            bms, by = bound_ms(flops, nbytes,
+                               PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+            rec = dict(
+                kernel="logmel", shape=[BATCH, n], variant=f" {name}{' +bn0' if affine else ''}",
+                per_request=int(dtype == torch.bfloat16 and affine),
+                max_abs_err=abs_err, max_rel_err=rel_err, ok=ok,
+                ms=time_ms(lambda: fused_logmel(x, compute_dtype=dtype, **kw)),
+                plain_ms=time_ms(lambda: logmel_reference(x, compute_dtype=dtype, **kw)),
+                bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+            )
+            if dtype == torch.bfloat16 and affine:
+                rec["unfused_ms"] = time_ms(lambda: batch_norm_inference(
+                    bn, logmel_spectrogram(x, compute_dtype=torch.bfloat16)))
+            records.append(rec)
     return records
 
 
@@ -178,13 +265,14 @@ def plain_encoder(params, wav, compute_dtype):
     ``convnext_apply`` computes off the kernel route), for the same inputs."""
     from conette_torch.kernels.convnext_block import convnext_block_reference
     from conette_torch.kernels.downsample import downsample_reference
+    from conette_torch.kernels.logmel import logmel_reference
     from conette_torch.models.convnext import (
-        LN_EPS, STEM_PADDING, STEM_STRIDE, block_args, convnext_heads, seam_args,
+        LN_EPS, STEM_PADDING, STEM_STRIDE, block_args, bn0_affine, convnext_heads, seam_args,
     )
-    from conette_torch.models.layers import batch_norm_inference, conv2d, layer_norm
-    from conette_torch.ops.frontend import logmel_spectrogram
+    from conette_torch.models.layers import conv2d, layer_norm
 
-    mel = batch_norm_inference(params["bn0"], logmel_spectrogram(wav, compute_dtype=compute_dtype))
+    scale, shift = bn0_affine(params["bn0"])
+    mel = logmel_reference(wav, bn_scale=scale, bn_shift=shift, compute_dtype=compute_dtype)
     y = conv2d(params["stem"]["conv"], mel[..., None].to(compute_dtype),
                stride=STEM_STRIDE, padding=STEM_PADDING)
     y = layer_norm(params["stem"]["norm"], y, eps=LN_EPS)
@@ -197,8 +285,9 @@ def plain_encoder(params, wav, compute_dtype):
     return frames.transpose(1, 2), clip
 
 
-def main_path(dev, work_dir: str) -> dict:
-    """Phase 3: build, save, load and serve a full-width model."""
+def main_path(dev, work_dir: str):
+    """Phase 3: build, save, load and serve a full-width model; returns the
+    summary and the loaded bf16 model."""
     import torch
 
     import conette_torch
@@ -206,6 +295,7 @@ def main_path(dev, work_dir: str) -> dict:
     from conette_torch.huggingface.model import CoNeTTEModel
     from conette_torch.kernels.convnext_block import fused_convnext_block
     from conette_torch.kernels.downsample import fused_downsample
+    from conette_torch.kernels.logmel import fused_logmel
     from conette_torch.models.convnext import convnext_apply, convnext_init
 
     tok = fit_tokenizer()
@@ -225,27 +315,30 @@ def main_path(dev, work_dir: str) -> dict:
 
     rng = np.random.default_rng(3)
     tasks = ["clotho", "audiocaps", "macs", "wavcaps_freesound"] * 2
+    fused_logmel.launches = 0
     fused_convnext_block.launches = 0
     fused_downsample.launches = 0
     latencies, outputs = [], []
     for r in range(3):
         clips = make_clips(rng, BATCH, 10.0, 44100)
-        b0, s0 = fused_convnext_block.launches, fused_downsample.launches
+        m0, b0, s0 = fused_logmel.launches, fused_convnext_block.launches, fused_downsample.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model(clips, sr=44100, task=tasks)
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
+        mels = fused_logmel.launches - m0
         blocks = fused_convnext_block.launches - b0
         seams = fused_downsample.launches - s0
-        assert blocks == 18 and seams == 3, (blocks, seams)
+        assert (mels, blocks, seams) == (1, 18, 3), (mels, blocks, seams)
         assert len(out["cands"]) == BATCH and all(isinstance(c, str) for c in out["cands"])
         assert len(out["tags"]) == BATCH and out["tags_probs"].shape == (BATCH, 527)
         assert np.isfinite(out["lprobs"]).all() and np.isfinite(out["tags_probs"]).all()
         outputs.append(out)
         print(f"  request {r}: {latencies[-1] * 1e3:.1f} ms, {BATCH / latencies[-1]:.2f} clips/s, "
-              f"{blocks} block + {seams} seam launches; cand 0: {out['cands'][0]!r}", flush=True)
-    launches = {"convnext_block": fused_convnext_block.launches,
+              f"{mels} log-mel + {blocks} block + {seams} seam launches; "
+              f"cand 0: {out['cands'][0]!r}", flush=True)
+    launches = {"logmel": fused_logmel.launches, "convnext_block": fused_convnext_block.launches,
                 "downsample": fused_downsample.launches}
 
     # the kernel encoder against the plain bf16 encoder, one request's inputs
@@ -273,12 +366,12 @@ def main_path(dev, work_dir: str) -> dict:
     np.testing.assert_allclose(card["lprobs"], cpu["lprobs"], atol=1e-3)
 
     stages = breakdown(model, make_clips(rng, BATCH, 10.0, 44100))
-    print("  one request's stages (median of 3, ms): "
+    print("  one request's stages (median of 4, ms): "
           + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()), flush=True)
     profiled = device_busy(model, make_clips(rng, BATCH, 10.0, 44100), tasks)
     print(f"  profiled request: {profiled['wall_ms']:.1f} ms wall, "
           f"{profiled['device_ms']:.1f} ms of kernels (busy share {profiled['busy_share']:.3f}); "
-          f"top: {profiled['top']}", flush=True)
+          f"top: {profiled['top']}; the port's kernels (ms): {profiled['ours_ms']}", flush=True)
 
     total = sum(latencies)
     return dict(
@@ -287,12 +380,74 @@ def main_path(dev, work_dir: str) -> dict:
         launches=launches, encoder_frame_embs_rel_err=fe_err, encoder_clip_abs_err=clip_err,
         f32_card_vs_cpu_tags_abs_err=tag_err, vocab=vocab,
         cands=[o["cands"] for o in outputs],
-    )
+    ), model
+
+
+# phase 4's corpus: 4 clips in each of the 1, 3, 5 and 10 s buckets, one of
+# each of WAV / FLAC at 44.1 / 32 kHz
+CORPUS_SECONDS = (0.8, 2.5, 4.5, 9.5)
+CORPUS_TASKS = ("clotho", "audiocaps", "macs", "wavcaps_freesound")
+
+
+def serve_corpus(model, work_dir: str) -> dict:
+    """Phase 4: write the corpus, warm the buckets up, caption it."""
+    import torch
+
+    from conette_torch.huggingface.preprocessor import bucket_length
+    from conette_torch.kernels.convnext_block import fused_convnext_block
+    from conette_torch.kernels.downsample import fused_downsample
+    from conette_torch.kernels.logmel import fused_logmel
+    from conette_torch.serving import CaptionResult, caption_corpus, warmup
+    from conette_torch.utils.audio_io import save_wav
+    from conette_torch.utils.flac import save_flac
+
+    rng = np.random.default_rng(5)
+    paths, tasks, buckets = [], [], {}
+    for i in range(16):
+        secs = CORPUS_SECONDS[i % 4]
+        sr = 44100 if i < 8 else 32000
+        kind = "flac" if (i // 4) % 2 else "wav"
+        path = os.path.join(work_dir, f"clip_{i:02d}.{kind}")
+        (save_flac if kind == "flac" else save_wav)(path, make_clips(rng, 1, secs, sr)[0], sr)
+        paths.append(path)
+        tasks.append(CORPUS_TASKS[(i // 2) % 4])
+        blen = bucket_length(int(secs * 32000))
+        buckets[blen] = buckets.get(blen, 0) + 1
+    n_batches = sum(-(-count // BATCH) for count in buckets.values())
+    assert len(buckets) >= 3, buckets
+
+    t0 = time.perf_counter()
+    warmup(model, bucket_seconds=sorted(b // 32000 for b in buckets), batch_size=BATCH)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    fused_logmel.launches = fused_convnext_block.launches = fused_downsample.launches = 0
+    t0 = time.perf_counter()
+    results = caption_corpus(model, paths, task=tasks, batch_size=BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"logmel": fused_logmel.launches, "convnext_block": fused_convnext_block.launches,
+                "downsample": fused_downsample.launches}
+    assert launches == {"logmel": n_batches, "convnext_block": 18 * n_batches,
+                        "downsample": 3 * n_batches}, (launches, n_batches)
+    assert [r.fname for r in results] == paths
+    assert [r.task for r in results] == tasks
+    assert all(isinstance(r, CaptionResult) and isinstance(r.caption, str)
+               and np.isfinite(r.lprob) for r in results)
+    print(f"  {len(paths)} files in {len(buckets)} buckets, {n_batches} batches of {BATCH}: "
+          f"warmup {warmup_s:.2f} s, caption_corpus {seconds:.2f} s = "
+          f"{len(paths) / seconds:.2f} clips/s; {launches}; "
+          f"first: {results[0].caption!r} ({results[0].task})", flush=True)
+    return dict(files=len(paths), buckets=len(buckets), batches=n_batches, warmup_s=warmup_s,
+                seconds=seconds, clips_per_s=len(paths) / seconds, launches=launches,
+                captions=[[r.task, r.caption, r.lprob] for r in results])
 
 
 def breakdown(model, clips: list[np.ndarray]) -> dict:
     """Host clock around each stage of one request, synchronised: host
-    load + resample, the bf16 encoder, projection + beam search."""
+    load + resample, the bf16 encoder, projection + beam search; and, in
+    the same loop and in alternating order, the bf16 encoder with the
+    unfused frontend that the log-mel kernel replaces."""
     import torch
 
     from conette_torch.models.conette import encode_audio, forward_generate
@@ -300,24 +455,35 @@ def breakdown(model, clips: list[np.ndarray]) -> dict:
 
     dev = model.device
     bos = torch.full((len(clips),), model.task_token_ids["clotho"], device=dev)
-    times: dict[str, list[float]] = {"host_load_resample": [], "encoder": [], "decoder": []}
+    times: dict[str, list[float]] = {"host_load_resample": [], "encoder": [],
+                                     "encoder_unfused_frontend": [], "decoder": []}
+
+    def encoder(wav, lens, fused: bool):
+        t0 = time.perf_counter()
+        out = convnext_apply(model.encoder_params, torch.from_numpy(wav).to(dev),
+                             torch.from_numpy(lens).to(dev), compute_dtype=torch.bfloat16,
+                             use_fused_frontend=fused)
+        torch.cuda.synchronize()
+        times["encoder" if fused else "encoder_unfused_frontend"].append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    enc = None
     with torch.inference_mode():
-        for _ in range(3):
+        for i in range(4):
             t0 = time.perf_counter()
             wav, lens = model.preprocessor.load_resample(clips, 44100)
-            t1 = time.perf_counter()
-            enc = convnext_apply(model.encoder_params, torch.from_numpy(wav).to(dev),
-                                 torch.from_numpy(lens).to(dev), compute_dtype=torch.bfloat16)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
+            times["host_load_resample"].append((time.perf_counter() - t0) * 1e3)
+            for fused in ((False, True) if i % 2 else (True, False)):
+                out = encoder(wav, lens, fused)
+                enc = out if fused else enc
+            t0 = time.perf_counter()
             memory, pad = encode_audio(model.params, model.model_cfg,
                                        enc["frame_embs"].transpose(1, 2), enc["frame_embs_lens"])
             forward_generate(model.params, model.model_cfg, memory, pad, bos,
                              forbid_rep_mask=model.forbid_rep_mask)
             torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            for k, v in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
-                times[k].append(v * 1e3)
+            times["decoder"].append((time.perf_counter() - t0) * 1e3)
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -325,7 +491,8 @@ def device_busy(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
     """One request under ``torch.profiler``: the kernels' summed device time
     against the request's wall time (one stream, so the sum is the busy
     time; the profiler's own cost lengthens the wall time, so the share is
-    a lower bound), and the five kernels that take the most of it."""
+    a lower bound), the five kernels that take the most of it, and the
+    device time of each of the port's own kernels in the request."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -340,12 +507,15 @@ def device_busy(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
             if e.device_type == DeviceType.CUDA]
     device = sum(ms for _, ms in rows)
     top = sorted(rows, key=lambda r: -r[1])[:5]
+    ours = {name: sum(ms for k, ms in rows if f"{name}_kernel" in k)
+            for name in ("logmel_bf16", "convnext_block", "downsample")}
     return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
-            "top": [[k[:60], round(ms, 3)] for k, ms in top]}
+            "top": [[k[:60], round(ms, 3)] for k, ms in top], "ours_ms": ours}
 
 
 def kernel_line(records: list[dict], launches: dict) -> dict:
     meta = {
+        "logmel": ("conette_torch/csrc/logmel.cu", "conette_tpu/ops/pallas/logmel.py:81"),
         "convnext_block": ("conette_torch/csrc/convnext_block.cu",
                            "conette_tpu/ops/pallas/convnext_block.py:568"),
         "downsample": ("conette_torch/csrc/downsample.cu",
@@ -367,8 +537,9 @@ def kernel_line(records: list[dict], launches: dict) -> dict:
             "bound_ms": sum(r["per_request"] * r["bound_ms"] for r in rs),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
-            "shapes": [{k: r[k] for k in ("shape", "per_request", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "max_rel_err")} for r in rs],
+            "shapes": [{k: r[k] for k in ("shape", "variant", "per_request", "ms", "plain_ms",
+                                          "unfused_ms", "bound_ms", "bound_by", "max_abs_err",
+                                          "max_rel_err") if k in r} for r in rs],
         })
     return {"kernels": out}
 
@@ -398,21 +569,25 @@ def main() -> int:
     print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path().name})", flush=True)
 
-    print("phase 2: kernels vs plain versions, bf16, batch 8", flush=True)
+    print("phase 2: kernels vs plain versions, batch 8", flush=True)
     records = check_kernels(dev)
 
     print("phase 3: main path, 3 requests x 8 clips x 10 s at 44.1 kHz, bf16 encoder", flush=True)
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work:
-        summary = main_path(dev, work)
-    print(f"  clips/s over the 3 requests: {summary['clips_per_s']:.2f}", flush=True)
+        summary, model = main_path(dev, work)
+        print(f"  clips/s over the 3 requests: {summary['clips_per_s']:.2f}", flush=True)
+        print("phase 4: corpus serving, 16 WAV and FLAC files, batch 8", flush=True)
+        served = serve_corpus(model, work)
 
     line = kernel_line(records, summary["launches"])
     for k in line["kernels"]:
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} never launched on the main path")
-    print(json.dumps({"card": smi, "records": records, "main_path": summary}), flush=True)
+        k["serving_launches"] = served["launches"][k["name"]]
+        if k["launches"] <= 0 or k["serving_launches"] <= 0:
+            raise AssertionError(f"{k['name']} never launched on a path")
+    print(json.dumps({"card": smi, "records": records, "main_path": summary,
+                      "serving": served}), flush=True)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ Counterpart of ``conette_tpu/huggingface/model.py`` (reference
 
 - ``CoNeTTEModel.from_pretrained(dir)`` restores config + tokenizer +
   weights from a directory holding ``config.json`` and ``params.npz``, as
-  either package's ``save_pretrained`` writes it;
+  either package's ``save_pretrained`` writes it, or ``config.json`` and
+  the reference's torch checkpoint (``model.safetensors`` or
+  ``pytorch_model.bin``, converted by ``huggingface/convert.py``);
 - ``model(x, sr=..., task=..., beam_size=...)`` → ``CoNeTTEOutput`` with
   ``cands / preds / lprobs / mult_* / tasks / tags / tags_probs``:
   preprocess → AudioSet tags at threshold 0.3 → task → beam search (or
@@ -16,8 +18,9 @@ defaults to ``"cuda"``, and without a CUDA device construction raises.
 On the card, TF32 is switched off for matmuls and cuDNN convolutions
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so the float32 path computes in
-float32. With ``compute_dtype=torch.bfloat16`` the encoder runs its blocks
-and seams through the hand-written CUDA kernels; the decoder stays f32.
+float32. With ``compute_dtype=torch.bfloat16`` the encoder runs its log-mel
+frontend, blocks and seams through the hand-written CUDA kernels; the
+decoder stays f32.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from conette_torch.huggingface.audioset import load_audioset_names, probs_to_names
 from conette_torch.huggingface.config import CoNeTTEConfig
-from conette_torch.huggingface.convert import load_params_npz
+from conette_torch.huggingface.convert import convert_torch_checkpoint, load_params_npz
 from conette_torch.huggingface.preprocessor import AudioInput, CoNeTTEPreprocessor
 from conette_torch.models.conette import (
     ConetteConfig,
@@ -293,7 +296,10 @@ class CoNeTTEModel:
         verbose: int = 0,
         **kwargs: Any,
     ) -> "CoNeTTEModel":
-        """Load a directory with ``config.json`` and ``params.npz``."""
+        """Load a directory with ``config.json`` and either ``params.npz``
+        or the reference's torch checkpoint (``model.safetensors`` /
+        ``pytorch_model.bin``); a checkpoint's pickled tokenizer state is
+        used when ``config.json`` has none."""
         path = pretrained_model_name_or_path
         if not os.path.isdir(path):
             raise FileNotFoundError(
@@ -304,8 +310,8 @@ class CoNeTTEModel:
             os.path.join(path, "checkpoints", "best")
         ):
             raise NotImplementedError(
-                "Loading a train-run directory comes with a later slice of "
-                "conette_torch; export it with save_pretrained first."
+                "Loading a train-run directory comes with the training slice "
+                "of conette_torch; export it with save_pretrained first."
             )
         config = CoNeTTEConfig.from_pretrained(path)
 
@@ -316,28 +322,61 @@ class CoNeTTEModel:
         else:
             audioset_names = load_audioset_names([path])
 
-        encoder_params = model_params = None
+        encoder_params = model_params = tokenizer = None
         npz = os.path.join(path, "params.npz")
         if os.path.isfile(npz):
             tree = load_params_npz(npz)
             encoder_params, model_params = tree["encoder"], tree["model"]
-        elif any(
-            os.path.isfile(os.path.join(path, f))
-            for f in ("model.safetensors", "pytorch_model.bin")
-        ):
-            raise NotImplementedError(
-                "Converting a reference torch checkpoint comes with a later "
-                "slice of conette_torch; convert it with conette_tpu and "
-                "save_pretrained (params.npz) first."
-            )
         else:
-            pylog.warning(f"No weights found in {path!r}; initializing randomly.")
+            state = _load_torch_state(path)
+            if state is not None:
+                encoder_params, model_params, extra = convert_torch_checkpoint(state)
+                if extra and config.tokenizer_state is None:
+                    tok_state = _extract_tokenizer_state(extra)
+                    if tok_state is not None:
+                        tokenizer = AACTokenizer()
+                        tokenizer.set_state(tok_state)
+            else:
+                pylog.warning(f"No weights found in {path!r}; initializing randomly.")
         return cls(
             config,
             encoder_params=encoder_params,
             model_params=model_params,
+            tokenizer=tokenizer,
             audioset_names=audioset_names,
             device=device,
             verbose=verbose,
             **kwargs,
         )
+
+
+def _load_torch_state(path: str) -> dict[str, Any] | None:
+    """The reference checkpoint's state dict from ``model.safetensors``
+    (when the ``safetensors`` package is importable) or
+    ``pytorch_model.bin`` (``torch.load`` with ``weights_only=True``; the
+    ``_extra_state_`` payload is unpickled later through the allowlisted
+    ``_RemapUnpickler``); None when the directory holds neither."""
+    for fname in ("model.safetensors", "pytorch_model.bin"):
+        fpath = os.path.join(path, fname)
+        if not os.path.isfile(fpath):
+            continue
+        if fname.endswith(".safetensors"):
+            try:
+                from safetensors.numpy import load_file
+            except ImportError:
+                pylog.warning(f"safetensors is not installed; skipping {fpath!r}")
+                continue
+            return dict(load_file(fpath))
+        return torch.load(fpath, map_location="cpu", weights_only=True)
+    return None
+
+
+def _extract_tokenizer_state(extra: Any) -> Any:
+    """Pull a tokenizer state out of the unpickled ``_extra_state_`` blob
+    (layout: {"tokenizers.<name>": state, ...} or nested dicts)."""
+    if not isinstance(extra, dict):
+        return None
+    for key, val in extra.items():
+        if "tokenizer" in str(key) and isinstance(val, dict) and "tokenizer" in val:
+            return val
+    return None

@@ -107,15 +107,17 @@ def library() -> ctypes.CDLL:
 
 
 @functools.cache
-def entry(name: str, n_ptrs: int, n_ints: int) -> ctypes._CFuncPtr:
-    """A C entry point ``(ptr × n_ptrs, int × n_ints, float eps, stream)``
-    returning an ``int`` error code, with its ``argtypes`` set: every pointer
-    and the stream as ``c_void_p``, so no 64-bit address is cut to 32 bits."""
+def entry(name: str, n_ptrs: int, n_ints: int, n_floats: int = 1) -> ctypes._CFuncPtr:
+    """A C entry point ``(ptr × n_ptrs, int × n_ints, float × n_floats,
+    stream)`` returning an ``int`` error code, with its ``argtypes`` set:
+    every pointer and the stream as ``c_void_p``, so no 64-bit address is
+    cut to 32 bits."""
     fn = getattr(library(), name)
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptrs
         + [ctypes.c_int] * n_ints
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float] * n_floats
+        + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn

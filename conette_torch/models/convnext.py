@@ -7,11 +7,13 @@ frequency-mean frame embeddings + AudioSet clip head (max+mean time pool →
 LN → Linear(768, 527) → sigmoid). Depths and dims are read from the
 parameter shapes, so narrow encoders run through the same code.
 
-Routing: on a CUDA tensor in bf16, every block goes through the
-hand-written block kernel and every seam through the seam kernel
-(``conette_torch/kernels/``). Everywhere else (the CPU, or f32 on the card)
-the encoder runs the plain PyTorch ops, as the JAX package runs XLA off
-its TPU kernel path.
+Routing: on a CUDA waveform in bf16, the log-mel frontend with bn0 folded
+into its affine epilogue goes through the hand-written log-mel kernel,
+every block through the block kernel and every seam through the seam
+kernel (``conette_torch/kernels/``). Everywhere else (the CPU, or f32 on
+the card) the encoder runs the plain PyTorch ops, as the JAX package runs
+XLA off its TPU kernel path; ``use_fused_frontend`` overrides the
+frontend's choice either way.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from conette_torch.kernels.convnext_block import (
     fused_convnext_block,
 )
 from conette_torch.kernels.downsample import fused_downsample
+from conette_torch.kernels.logmel import fused_logmel
 from conette_torch.models.layers import (
     Params,
     batch_norm_inference,
@@ -117,6 +120,13 @@ def uses_kernels(x: torch.Tensor) -> bool:
     return x.is_cuda and x.dtype == torch.bfloat16
 
 
+def bn0_affine(bn: Params) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inference bn0 as a per-mel-bin f32 affine: ``scale = w·rsqrt(var
+    + 1e-5)``, ``shift = b − mean·scale``."""
+    scale = bn["weight"].float() * torch.rsqrt(bn["running_var"].float() + 1e-5)
+    return scale, bn["bias"].float() - bn["running_mean"].float() * scale
+
+
 def convnext_features(params: Params, x: torch.Tensor) -> torch.Tensor:
     """(B, T, F, 1) NHWC log-mel → (B, T', F', C_last) feature map."""
     y = conv2d(params["stem"]["conv"], x, stride=STEM_STRIDE, padding=STEM_PADDING)
@@ -156,6 +166,7 @@ def convnext_apply(
     logmel_cfg: LogMelConfig = DEFAULT_LOGMEL,
     waveform_input: bool = True,
     compute_dtype: torch.dtype = torch.float32,
+    use_fused_frontend: bool | None = None,
 ) -> dict[str, torch.Tensor]:
     """Full encoder forward.
 
@@ -163,16 +174,27 @@ def convnext_apply(
         spectrogram when ``waveform_input`` is False.
     :param waveform_lens: (B,) true lengths along the time axis of
         ``waveform``; defaults to the full length.
+    :param use_fused_frontend: True runs the log-mel frontend through
+        ``fused_logmel`` with bn0 folded into its affine, False through the
+        plain ops; None picks the kernel for a CUDA waveform at bf16.
     :returns: ``frame_embs`` (B, C, T') f32, ``frame_embs_lens`` (B,) int32
         and ``clipwise_output`` (B, 527) f32.
     """
-    if waveform_input:
-        mel = logmel_spectrogram(waveform, logmel_cfg, compute_dtype=compute_dtype)
+    if use_fused_frontend is None:
+        use_fused_frontend = waveform.is_cuda and compute_dtype == torch.bfloat16
+    if waveform_input and use_fused_frontend:
+        scale, shift = bn0_affine(params["bn0"])
+        mel = fused_logmel(waveform, logmel_cfg, bn_scale=scale, bn_shift=shift,
+                           compute_dtype=compute_dtype)
         input_time_len = waveform.shape[-1]
     else:
-        mel = waveform
-        input_time_len = waveform.shape[1]
-    mel = batch_norm_inference(params["bn0"], mel, axis=-1)
+        if waveform_input:
+            mel = logmel_spectrogram(waveform, logmel_cfg, compute_dtype=compute_dtype)
+            input_time_len = waveform.shape[-1]
+        else:
+            mel = waveform
+            input_time_len = waveform.shape[1]
+        mel = batch_norm_inference(params["bn0"], mel, axis=-1)
     feats = convnext_features(params, mel[..., None].to(compute_dtype))
     frames, clip = convnext_heads(params, feats)
 

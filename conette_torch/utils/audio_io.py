@@ -1,9 +1,11 @@
-"""Host-side WAV I/O without external dependencies.
+"""Host-side audio I/O without required external dependencies.
 
 The reference loads audio through torchaudio's native sox bindings
 (``huggingface/preprocessor.py:79-80``). This module decodes RIFF/WAVE PCM
 (8/16/24/32-bit int and 32/64-bit float) into float32 numpy arrays with the
-same (channels, time) layout and [-1, 1] scaling torchaudio uses.
+same (channels, time) layout and [-1, 1] scaling torchaudio uses, and
+dispatches FLAC, mp3 and Ogg Vorbis to ``utils/flac.py`` and
+``utils/lossy.py``.
 """
 
 from __future__ import annotations
@@ -14,36 +16,83 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["load_audio", "load_wav", "save_wav", "generate_sample_wav"]
+__all__ = ["load_audio", "load_wav", "wav_info", "save_wav", "generate_sample_wav"]
 
 
 def load_audio(path: str) -> Tuple[np.ndarray, int]:
     """Load an audio file → (waveform (channels, time) float32 in [-1, 1], sr).
 
     Dispatches on the container magic bytes, not the file extension, like
-    sox/torchaudio do. RIFF/WAVE PCM is decoded here; FLAC, mp3 and Ogg
-    Vorbis raise ``NotImplementedError``: their decoders are ported in a
-    later slice of the port (the audio-loading slice).
+    sox/torchaudio do (the reference's ``huggingface/preprocessor.py:79-80``
+    loads anything torchaudio reads; WavCaps ships FLAC): RIFF/WAVE → PCM
+    WAV decoder, fLaC → pure-Python FLAC decoder (``utils/flac.py``), mp3
+    (ID3 tag or MPEG frame sync) and Ogg Vorbis → optional SDL_mixer host
+    backend (``utils/lossy.py``; actionable ImportError when pygame is
+    absent).
     """
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == b"RIFF":
         return load_wav(path)
-    names = {b"fLaC": "FLAC", b"OggS": "Ogg Vorbis"}
+    if magic == b"fLaC":
+        from conette_torch.utils.flac import load_flac
+
+        return load_flac(path)
     if magic[:3] == b"ID3" or (
         len(magic) >= 2 and magic[0] == 0xFF and (magic[1] & 0xE0) == 0xE0
     ):
-        names[magic] = "mp3"
-    if magic in names:
-        raise NotImplementedError(
-            f"{names[magic]} input ({path!r}) is not decoded by conette_torch "
-            "yet: the FLAC/mp3/Ogg readers come with the port's later "
-            "audio-loading slice. Convert the file to WAV, or pass arrays."
-        )
+        from conette_torch.utils.lossy import load_mp3
+
+        return load_mp3(path)
+    if magic == b"OggS":
+        from conette_torch.utils.lossy import load_ogg
+
+        return load_ogg(path)
     raise ValueError(
         f"Unsupported audio container in {path!r} (magic {magic!r}); "
-        "supported: RIFF/WAVE PCM"
+        "supported: RIFF/WAVE PCM, FLAC, mp3 and Ogg Vorbis (the latter "
+        "two via the optional pygame/SDL_mixer backend)"
     )
+
+
+def _wav_chunks(f, path: str, read_data: bool) -> tuple[bytes, int, bytes | None]:
+    """Walk the RIFF chunks of an open WAV file → (fmt chunk, data chunk
+    size, data bytes or None when ``read_data`` is False)."""
+    header = f.read(12)
+    if len(header) < 12 or header[:4] != b"RIFF" or header[8:12] != b"WAVE":
+        raise ValueError(f"Not a RIFF/WAVE file: {path}")
+    fmt = None
+    data_size = None
+    data = None
+    while True:
+        chunk_header = f.read(8)
+        if len(chunk_header) < 8:
+            break
+        chunk_id, size = struct.unpack("<4sI", chunk_header)
+        if chunk_id == b"fmt ":
+            fmt = f.read(size)
+        elif chunk_id == b"data":
+            data_size = size
+            if read_data:
+                data = f.read(size)
+            else:
+                f.seek(size + (size & 1), 1)
+        else:
+            f.seek(size + (size & 1), 1)
+        if fmt is not None and data_size is not None:
+            break
+    if fmt is None or data_size is None:
+        raise ValueError(f"Missing fmt/data chunk in {path}")
+    return fmt, data_size, data
+
+
+def wav_info(path: str) -> Tuple[int, int, int]:
+    """(sample_rate, channels, frames) from a WAV file's header alone; the
+    data chunk is not read. Raises ``ValueError`` for other containers."""
+    with open(path, "rb") as f:
+        fmt, data_size, _ = _wav_chunks(f, path, read_data=False)
+    _, n_channels, sample_rate, _, block_align, _ = struct.unpack("<HHIIHH", fmt[:16])
+    return int(sample_rate), int(n_channels), data_size // max(block_align, 1)
 
 
 def load_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -53,26 +102,7 @@ def load_wav(path: str) -> Tuple[np.ndarray, int]:
     1 / 2**(bits-1); floats pass through.
     """
     with open(path, "rb") as f:
-        header = f.read(12)
-        if len(header) < 12 or header[:4] != b"RIFF" or header[8:12] != b"WAVE":
-            raise ValueError(f"Not a RIFF/WAVE file: {path}")
-        fmt = None
-        data = None
-        while True:
-            chunk_header = f.read(8)
-            if len(chunk_header) < 8:
-                break
-            chunk_id, size = struct.unpack("<4sI", chunk_header)
-            if chunk_id == b"fmt ":
-                fmt = f.read(size)
-            elif chunk_id == b"data":
-                data = f.read(size)
-            else:
-                f.seek(size + (size & 1), 1)
-            if fmt is not None and data is not None:
-                break
-    if fmt is None or data is None:
-        raise ValueError(f"Missing fmt/data chunk in {path}")
+        fmt, _, data = _wav_chunks(f, path, read_data=True)
 
     audio_format, n_channels, sample_rate, _, _, bits = struct.unpack(
         "<HHIIHH", fmt[:16]

@@ -15,6 +15,7 @@ import torch
 
 from conette_torch.kernels.convnext_block import convnext_block_reference, fused_convnext_block
 from conette_torch.kernels.downsample import downsample_reference, fused_downsample
+from conette_torch.kernels.logmel import fused_logmel, logmel_reference
 
 EPS = 1e-6
 # (T, F, C) of each stage's blocks and seam input for a 10 s clip
@@ -70,6 +71,45 @@ def test_seam_kernel_matches_plain_on_card(h100, t, f, c):
     want = downsample_reference(x, *seam, eps=EPS)
     assert got.shape == want.shape == (2, t // 2, f // 2, 2 * c)
     assert rel_err(want, got) < 0.02
+
+
+def _waveform(rng, b, s, h100):
+    """Noise and a tone, with a silent tail in the last clip so the frames
+    that straddle its end and the -100 dB floor are both covered."""
+    t = np.arange(s) / 32000
+    x = 0.05 * rng.standard_normal((b, s)) + 0.3 * np.sin(2 * np.pi * 440 * t * (1 + t))
+    x[-1, s - s // 4:] = 0.0
+    return torch.from_numpy(x.astype(np.float32)).to(h100)
+
+
+# f32: the JAX envelope of its kernel (tests/test_pallas_logmel.py:21).
+# bf16: kernel and plain version round at the same points and differ by f32
+# summation order, which can flip one bf16 rounding of a power bin, about
+# 0.017 dB on the mel bins that hold it; 0.05 dB (times the affine scale).
+@pytest.mark.parametrize("shape", [(2, 320_000), (2, 22_400)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("affine", [False, True])
+def test_logmel_kernel_matches_plain_on_card(h100, shape, dtype, affine):
+    rng = np.random.default_rng(shape[1])
+    x = _waveform(rng, *shape, h100)
+    scale = shift = None
+    if affine:
+        scale = _randn(rng, (224,), 0.3, h100, shift=1.0)
+        shift = _randn(rng, (224,), 1.0, h100)
+    n = fused_logmel.launches
+    got = fused_logmel(x, bn_scale=scale, bn_shift=shift, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert fused_logmel.launches == n + 1
+    want = logmel_reference(x, bn_scale=scale, bn_shift=shift, compute_dtype=dtype)
+    assert got.shape == want.shape == (shape[0], 1 + shape[1] // 320, 224)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-4)
+    else:
+        gain = 1.0 if scale is None else float(scale.abs().max())
+        assert float((got - want).abs().max()) <= 0.05 * gain
+    if not affine:  # the silent frames of the last clip sit on the -100 dB floor
+        floor = torch.full_like(got[-1, -5:], -100.0)
+        torch.testing.assert_close(got[-1, -5:], floor, atol=1e-4, rtol=0)
 
 
 def test_kernels_reject_what_they_do_not_take(h100):

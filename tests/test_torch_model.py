@@ -21,6 +21,7 @@ from conette_torch.models.convnext import convnext_init
 from conette_torch.predict import main_predict
 from conette_torch.tokenization import AACTokenizer
 from conette_torch.utils.audio_io import load_audio, save_wav
+from conette_torch.utils.flac import save_flac
 
 CORPUS = [
     "a bird sings loudly in the trees",
@@ -95,15 +96,19 @@ def test_predict_cli_on_cpu(saved, tmp_path):
 
 
 def test_unported_loaders_raise(tmp_path):
+    """The train-run loader is still to port and raises, as a missing
+    directory does; FLAC input, once unported, now decodes."""
     (tmp_path / "run" / "checkpoints" / "best").mkdir(parents=True)
     with pytest.raises(NotImplementedError, match="train-run"):
         CoNeTTEModel.from_pretrained(str(tmp_path / "run"), device="cpu")
     with pytest.raises(FileNotFoundError):
         CoNeTTEModel.from_pretrained(str(tmp_path / "missing"), device="cpu")
     flac = tmp_path / "a.flac"
-    flac.write_bytes(b"fLaC" + bytes(64))
-    with pytest.raises(NotImplementedError, match="FLAC"):
-        load_audio(str(flac))
+    x = (0.25 * np.sin(np.arange(4000) / 7.0)).astype(np.float32)
+    save_flac(str(flac), x, 16000)
+    audio, sr = load_audio(str(flac))
+    assert sr == 16000 and audio.shape == (1, 4000)
+    assert np.abs(audio[0] - x).max() <= 1 / 32768
 
 
 def test_frame_embedding_input_matches_jax(saved):

@@ -28,7 +28,9 @@ def test_port_imports_neither_jax_nor_conette_tpu():
     code = (
         "import sys\n"
         "import conette_torch, conette_torch.huggingface.model, conette_torch.predict\n"
-        "import conette_torch.kernels.convnext_block\n"
+        "import conette_torch.kernels.convnext_block, conette_torch.kernels.logmel\n"
+        "import conette_torch.serving, conette_torch.huggingface.convert\n"
+        "import conette_torch.utils.flac, conette_torch.utils.lossy\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'conette_tpu'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
