@@ -22,11 +22,12 @@ Phases (any failure exits non-zero):
    1 log-mel, 18 block and 3 seam kernel launches; the kernel encoder is
    held against the plain bf16 encoder on one request, and the f32 path on
    the card against the f32 path on the CPU on two short clips;
-4. serve a corpus of 16 WAV and FLAC files (0.8..9.5 s at 44.1 and 32 kHz,
-   4 length buckets) with ``conette_torch.serving``: ``warmup`` for the
-   buckets, then ``caption_corpus(..., batch_size=8)`` with a task per
-   clip; results in input order with their tasks, and every batch runs
-   1 + 18 + 3 kernel launches;
+4. serve a corpus of 32 WAV and FLAC files (0.8..9.5 s at 44.1 and 32 kHz,
+   4 length buckets of 8, so no batch holds silence rows) with
+   ``conette_torch.serving``: ``warmup`` for the buckets, then
+   ``caption_corpus(..., batch_size=8)`` with a task per clip, 3 times,
+   with the host's file decode timed inside each call; results in input
+   order with their tasks, and every batch runs 1 + 18 + 3 kernel launches;
 5. print a details JSON line, the card line, the ``kernels`` JSON line
    and, last, the device JSON line.
 """
@@ -188,7 +189,8 @@ def check_logmel(dev, gen) -> list[dict]:
     from conette_torch.kernels.logmel import fused_logmel, logmel_reference
     from conette_torch.models.convnext import bn0_affine
     from conette_torch.models.layers import batch_norm_inference
-    from conette_torch.ops.frontend import logmel_spectrogram
+    from conette_torch.ops.frontend import DEFAULT_LOGMEL, _mel_matrix, logmel_spectrogram
+    from conette_torch.ops.stft import dft_basis
 
     n = LOGMEL_SAMPLES
     t = torch.arange(n, dtype=torch.float64) / 32000
@@ -198,7 +200,11 @@ def check_logmel(dev, gen) -> list[dict]:
     bn = random_bn0(gen, dev)
     scale, shift = bn0_affine(bn)
     frames = 1 + n // 320
-    flops = BATCH * (2 * frames * 1024 * 2 * 513 + 2 * frames * 513 * 224)
+    # the least work: a multiply-add for each nonzero entry of the windowed
+    # DFT basis (1024 x 1026, a zero row and two zero columns) and of the
+    # mel filterbank (513 x 224, over 99 % zeros), for each frame
+    nnz = int(np.count_nonzero(dft_basis(1024))), int(np.count_nonzero(_mel_matrix(DEFAULT_LOGMEL)))
+    flops = BATCH * frames * 2 * sum(nnz)
     records = []
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for affine in (True, False):
@@ -213,7 +219,7 @@ def check_logmel(dev, gen) -> list[dict]:
                 gain = float(scale.abs().max()) if affine else 1.0
                 ok = abs_err <= LOGMEL_BF16_ATOL * gain
             width = 2 if dtype == torch.bfloat16 else 4
-            nbytes = BATCH * n * 4 + BATCH * frames * 224 * 4 + width * (1024 * 1026 + 513 * 224)
+            nbytes = BATCH * n * 4 + BATCH * frames * 224 * 4 + width * sum(nnz)
             bms, by = bound_ms(flops, nbytes,
                                PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
             rec = dict(
@@ -383,14 +389,20 @@ def main_path(dev, work_dir: str):
     ), model
 
 
-# phase 4's corpus: 4 clips in each of the 1, 3, 5 and 10 s buckets, one of
-# each of WAV / FLAC at 44.1 / 32 kHz
+# phase 4's corpus: 8 clips in each of the 1, 3, 5 and 10 s buckets, so
+# every batch of 8 is full; each bucket holds 2 of each of WAV / FLAC at
+# 44.1 / 32 kHz
 CORPUS_SECONDS = (0.8, 2.5, 4.5, 9.5)
+CORPUS_FILES = 8 * len(CORPUS_SECONDS)
 CORPUS_TASKS = ("clotho", "audiocaps", "macs", "wavcaps_freesound")
+CORPUS_RUNS = 3
 
 
 def serve_corpus(model, work_dir: str) -> dict:
-    """Phase 4: write the corpus, warm the buckets up, caption it."""
+    """Phase 4: write the corpus, warm the buckets up, caption it
+    ``CORPUS_RUNS`` times; the host's file decode and resample inside each
+    call (every ``load_resample``: the bucket pass for FLAC, then each
+    batch's loads) is timed apart from the call."""
     import torch
 
     from conette_torch.huggingface.preprocessor import bucket_length
@@ -403,10 +415,10 @@ def serve_corpus(model, work_dir: str) -> dict:
 
     rng = np.random.default_rng(5)
     paths, tasks, buckets = [], [], {}
-    for i in range(16):
+    for i in range(CORPUS_FILES):
         secs = CORPUS_SECONDS[i % 4]
-        sr = 44100 if i < 8 else 32000
-        kind = "flac" if (i // 4) % 2 else "wav"
+        sr = 44100 if (i // 4) % 2 else 32000
+        kind = "flac" if (i // 8) % 2 else "wav"
         path = os.path.join(work_dir, f"clip_{i:02d}.{kind}")
         (save_flac if kind == "flac" else save_wav)(path, make_clips(rng, 1, secs, sr)[0], sr)
         paths.append(path)
@@ -414,32 +426,54 @@ def serve_corpus(model, work_dir: str) -> dict:
         blen = bucket_length(int(secs * 32000))
         buckets[blen] = buckets.get(blen, 0) + 1
     n_batches = sum(-(-count // BATCH) for count in buckets.values())
-    assert len(buckets) >= 3, buckets
+    assert len(buckets) >= 3 and all(count % BATCH == 0 for count in buckets.values()), buckets
 
     t0 = time.perf_counter()
     warmup(model, bucket_seconds=sorted(b // 32000 for b in buckets), batch_size=BATCH)
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
-    fused_logmel.launches = fused_convnext_block.launches = fused_downsample.launches = 0
-    t0 = time.perf_counter()
-    results = caption_corpus(model, paths, task=tasks, batch_size=BATCH)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"logmel": fused_logmel.launches, "convnext_block": fused_convnext_block.launches,
-                "downsample": fused_downsample.launches}
-    assert launches == {"logmel": n_batches, "convnext_block": 18 * n_batches,
-                        "downsample": 3 * n_batches}, (launches, n_batches)
-    assert [r.fname for r in results] == paths
-    assert [r.task for r in results] == tasks
-    assert all(isinstance(r, CaptionResult) and isinstance(r.caption, str)
-               and np.isfinite(r.lprob) for r in results)
-    print(f"  {len(paths)} files in {len(buckets)} buckets, {n_batches} batches of {BATCH}: "
-          f"warmup {warmup_s:.2f} s, caption_corpus {seconds:.2f} s = "
-          f"{len(paths) / seconds:.2f} clips/s; {launches}; "
+    pre = model.preprocessor
+    load = pre.load_resample
+    decode = [0.0]
+
+    def timed_load(*args, **kwargs):
+        t = time.perf_counter()
+        out = load(*args, **kwargs)
+        decode[0] += time.perf_counter() - t
+        return out
+
+    pre.load_resample = timed_load  # instance attribute, removed below
+    runs = []
+    try:
+        for _ in range(CORPUS_RUNS):
+            decode[0] = 0.0
+            fused_logmel.launches = fused_convnext_block.launches = fused_downsample.launches = 0
+            t0 = time.perf_counter()
+            results = caption_corpus(model, paths, task=tasks, batch_size=BATCH)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {"logmel": fused_logmel.launches,
+                        "convnext_block": fused_convnext_block.launches,
+                        "downsample": fused_downsample.launches}
+            assert launches == {"logmel": n_batches, "convnext_block": 18 * n_batches,
+                                "downsample": 3 * n_batches}, (launches, n_batches)
+            assert [r.fname for r in results] == paths
+            assert [r.task for r in results] == tasks
+            assert all(isinstance(r, CaptionResult) and isinstance(r.caption, str)
+                       and np.isfinite(r.lprob) for r in results)
+            runs.append(dict(seconds=seconds, clips_per_s=len(paths) / seconds,
+                             host_decode_s=decode[0], rest_s=seconds - decode[0]))
+    finally:
+        del pre.load_resample
+    median = statistics.median(r["clips_per_s"] for r in runs)
+    print(f"  {len(paths)} files in {len(buckets)} buckets, {n_batches} full batches of {BATCH}: "
+          f"warmup {warmup_s:.2f} s; caption_corpus "
+          + ", ".join(f"{r['seconds']:.2f} s (host decode {r['host_decode_s']:.2f} s)" for r in runs)
+          + f", median {median:.2f} clips/s; {launches} a run; "
           f"first: {results[0].caption!r} ({results[0].task})", flush=True)
     return dict(files=len(paths), buckets=len(buckets), batches=n_batches, warmup_s=warmup_s,
-                seconds=seconds, clips_per_s=len(paths) / seconds, launches=launches,
+                runs=runs, clips_per_s_median=median, launches=launches,
                 captions=[[r.task, r.caption, r.lprob] for r in results])
 
 
@@ -447,22 +481,34 @@ def breakdown(model, clips: list[np.ndarray]) -> dict:
     """Host clock around each stage of one request, synchronised: host
     load + resample, the bf16 encoder, projection + beam search; and, in
     the same loop and in alternating order, the bf16 encoder with the
-    unfused frontend that the log-mel kernel replaces."""
+    unfused frontend that the log-mel kernel replaces (composed here: the
+    plain frontend and bn0, then the same stem, kernel stages and heads)."""
     import torch
 
     from conette_torch.models.conette import encode_audio, forward_generate
-    from conette_torch.models.convnext import convnext_apply
+    from conette_torch.models.convnext import convnext_apply, convnext_features, convnext_heads
+    from conette_torch.models.layers import batch_norm_inference
+    from conette_torch.ops.frontend import logmel_spectrogram
 
     dev = model.device
+    params = model.encoder_params
     bos = torch.full((len(clips),), model.task_token_ids["clotho"], device=dev)
     times: dict[str, list[float]] = {"host_load_resample": [], "encoder": [],
                                      "encoder_unfused_frontend": [], "decoder": []}
 
+    def unfused(wav):
+        mel = batch_norm_inference(params["bn0"], logmel_spectrogram(wav, compute_dtype=torch.bfloat16))
+        frames, clip = convnext_heads(params, convnext_features(params, mel[..., None].to(torch.bfloat16)))
+        return {"frame_embs": frames.transpose(1, 2), "clipwise_output": clip}
+
     def encoder(wav, lens, fused: bool):
         t0 = time.perf_counter()
-        out = convnext_apply(model.encoder_params, torch.from_numpy(wav).to(dev),
-                             torch.from_numpy(lens).to(dev), compute_dtype=torch.bfloat16,
-                             use_fused_frontend=fused)
+        wav_t = torch.from_numpy(wav).to(dev)
+        if fused:
+            out = convnext_apply(params, wav_t, torch.from_numpy(lens).to(dev),
+                                 compute_dtype=torch.bfloat16)
+        else:
+            out = unfused(wav_t)
         torch.cuda.synchronize()
         times["encoder" if fused else "encoder_unfused_frontend"].append(
             (time.perf_counter() - t0) * 1e3)
@@ -578,7 +624,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build_dir) as work:
         summary, model = main_path(dev, work)
         print(f"  clips/s over the 3 requests: {summary['clips_per_s']:.2f}", flush=True)
-        print("phase 4: corpus serving, 16 WAV and FLAC files, batch 8", flush=True)
+        print(f"phase 4: corpus serving, {CORPUS_FILES} WAV and FLAC files, batch 8", flush=True)
         served = serve_corpus(model, work)
 
     line = kernel_line(records, summary["launches"])

@@ -12,10 +12,14 @@
 // the Mosaic layout: no lane padding of the output (513 -> 640, 224 -> 256),
 // no 128-frame tile, and no (B, T, 1024) frames tensor in device memory.
 //
-// What bounds it on the H100: at batch 8 x 10 s, 18.7 GFLOP against about
-// 20 MB of waveform, basis, filterbank and output, so the bf16 variant is
-// bound by the tensor cores (0.019 ms at 989 TFLOP/s) and the f32 variant by
-// the f32 FMA pipes (0.28 ms at 67 TFLOP/s); the bytes need 0.006 ms.
+// What bounds it on the H100: at batch 8 x 10 s the least work is one
+// multiply-add a frame for each nonzero entry of the windowed DFT basis
+// (1024 x 1026 less a zero row and two zero columns) and of the mel
+// filterbank (884 of its 513 x 224 entries): 16.8 GFLOP against about
+// 20 MB of waveform, basis and output, so the bf16 variant is bound by the
+// tensor cores (0.017 ms at 989 TFLOP/s) and the f32 variant by the f32 FMA
+// pipes (0.25 ms at 67 TFLOP/s); the bytes need 0.006 ms. This kernel does
+// the filterbank product densely (1.8 GFLOP more, nearly all on zeros).
 //
 // What the design does about it: the (T, 1026) spectrum and the power stay
 // on the SM, and the frames are never materialised. A thread block owns

@@ -2,7 +2,8 @@
 
 Copy of ``conette_tpu/huggingface/convert.py`` (the port imports nothing of
 the JAX package), so both packages build the same tree from one checkpoint.
-Handles:
+It differs in one place: its unpickler admits no torch global (see
+``_RemapUnpickler``). Handles:
 
 - the ``preprocessor.encoder.*`` ConvNeXt weights: torch OIHW conv kernels →
   HWIO, torch (out, in) linears → (in, out), ``gamma`` → ``scale_layer``
@@ -44,7 +45,10 @@ class _RemapUnpickler(pickle.Unpickler):
     Untrusted-input hardening: everything outside the remap table resolves
     only through an explicit allowlist of data-shaped classes; any other
     global (os.system, subprocess, numpy ufuncs, …) raises UnpicklingError
-    instead of executing reduce payloads."""
+    instead of executing reduce payloads. A tokenizer state is strings and
+    ints, so no ``torch`` global is allowed: ``torch.storage._load_from_bytes``
+    runs ``torch.load(..., weights_only=False)`` on bytes the file supplies,
+    which would run any pickle hidden in them."""
 
     _MODULE_MAP = {
         "conette.tokenization.aac_tokenizer": "conette_torch.tokenization.aac_tokenizer",
@@ -62,8 +66,6 @@ class _RemapUnpickler(pickle.Unpickler):
         ("builtins", "range"),
         ("collections", "OrderedDict"),
         ("collections", "Counter"),
-        ("torch._utils", "_rebuild_tensor_v2"),
-        ("torch.storage", "_load_from_bytes"),
     }
 
     def find_class(self, module: str, name: str) -> Any:
@@ -74,7 +76,7 @@ class _RemapUnpickler(pickle.Unpickler):
             return _StatefulStub
         if module.startswith("conette_torch.tokenization."):
             return super().find_class(module, name)
-        if (module, name) in self._ALLOWED or module.startswith("torch.storage"):
+        if (module, name) in self._ALLOWED:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f"Blocked unpickling of {module}.{name} from checkpoint "

@@ -12,8 +12,9 @@ into its affine epilogue goes through the hand-written log-mel kernel,
 every block through the block kernel and every seam through the seam
 kernel (``conette_torch/kernels/``). Everywhere else (the CPU, or f32 on
 the card) the encoder runs the plain PyTorch ops, as the JAX package runs
-XLA off its TPU kernel path; ``use_fused_frontend`` overrides the
-frontend's choice either way.
+XLA off its TPU kernel path. ``use_fused_frontend=True`` takes the
+frontend's kernel route on those paths too (its plain version on the CPU);
+nothing turns a kernel off on the card's bf16 route.
 """
 
 from __future__ import annotations
@@ -176,12 +177,18 @@ def convnext_apply(
         ``waveform``; defaults to the full length.
     :param use_fused_frontend: True runs the log-mel frontend through
         ``fused_logmel`` with bn0 folded into its affine, False through the
-        plain ops; None picks the kernel for a CUDA waveform at bf16.
+        plain ops; None picks the kernel for a CUDA waveform at bf16. False
+        raises for a CUDA waveform at bf16: that route always takes the
+        kernel.
     :returns: ``frame_embs`` (B, C, T') f32, ``frame_embs_lens`` (B,) int32
         and ``clipwise_output`` (B, 527) f32.
     """
+    kernel_route = waveform_input and waveform.is_cuda and compute_dtype == torch.bfloat16
     if use_fused_frontend is None:
-        use_fused_frontend = waveform.is_cuda and compute_dtype == torch.bfloat16
+        use_fused_frontend = kernel_route
+    elif kernel_route and not use_fused_frontend:
+        raise ValueError("a CUDA waveform at bf16 always takes the log-mel kernel; "
+                         "use_fused_frontend=False is for the CPU and f32 routes")
     if waveform_input and use_fused_frontend:
         scale, shift = bn0_affine(params["bn0"])
         mel = fused_logmel(waveform, logmel_cfg, bn_scale=scale, bn_shift=shift,

@@ -16,6 +16,7 @@ import torch
 from conette_torch.kernels.convnext_block import convnext_block_reference, fused_convnext_block
 from conette_torch.kernels.downsample import downsample_reference, fused_downsample
 from conette_torch.kernels.logmel import fused_logmel, logmel_reference
+from conette_torch.models.convnext import convnext_apply
 
 EPS = 1e-6
 # (T, F, C) of each stage's blocks and seam input for a 10 s clip
@@ -110,6 +111,13 @@ def test_logmel_kernel_matches_plain_on_card(h100, shape, dtype, affine):
     if not affine:  # the silent frames of the last clip sit on the -100 dB floor
         floor = torch.full_like(got[-1, -5:], -100.0)
         torch.testing.assert_close(got[-1, -5:], floor, atol=1e-4, rtol=0)
+
+
+def test_bf16_card_route_keeps_the_frontend_kernel(h100):
+    """Nothing turns the log-mel kernel off for a CUDA waveform at bf16."""
+    x = torch.zeros((1, 32_000), device=h100)
+    with pytest.raises(ValueError, match="always takes the log-mel kernel"):
+        convnext_apply({}, x, compute_dtype=torch.bfloat16, use_fused_frontend=False)
 
 
 def test_kernels_reject_what_they_do_not_take(h100):

@@ -26,6 +26,7 @@ from conette_tpu.utils.audio_io import load_audio as jax_load_audio
 from conette_torch.huggingface.config import CoNeTTEConfig
 from conette_torch.huggingface.convert import (
     convert_torch_checkpoint,
+    extract_extra_state,
     flatten_pytree,
     loads_remapped,
 )
@@ -36,11 +37,28 @@ from conette_torch.utils.audio_io import load_audio, load_wav, save_wav, wav_inf
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _code(path: str) -> str:
+# the one place where a copy differs from its original on purpose: the
+# port's unpickler allows no torch global, because torch.storage's
+# _load_from_bytes unpickles file bytes with weights_only=False
+DIFFERENCES = {
+    "huggingface/convert.py": [
+        ('        ("torch._utils", "_rebuild_tensor_v2"),\n'
+         '        ("torch.storage", "_load_from_bytes"),\n', ""),
+        ('in self._ALLOWED or module.startswith("torch.storage"):', "in self._ALLOWED:"),
+    ],
+}
+
+
+def _code(path: str, differences=()) -> str:
     """The module's code without docstrings or comments, with the JAX
-    package's name replaced by the port's."""
+    package's name replaced by the port's and each named difference
+    applied (each must be found)."""
     with open(os.path.join(REPO, path)) as f:
-        tree = ast.parse(f.read().replace("conette_tpu", "conette_torch"))
+        text = f.read()
+    for old, new in differences:
+        assert text.count(old) == 1, (path, old)
+        text = text.replace(old, new)
+    tree = ast.parse(text.replace("conette_tpu", "conette_torch"))
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
@@ -51,7 +69,8 @@ def _code(path: str) -> str:
 
 @pytest.mark.parametrize("module", ["utils/flac.py", "utils/lossy.py", "huggingface/convert.py"])
 def test_copies_hold_the_original_code(module):
-    assert _code(f"conette_torch/{module}") == _code(f"conette_tpu/{module}")
+    want = _code(f"conette_tpu/{module}", DIFFERENCES.get(module, ()))
+    assert _code(f"conette_torch/{module}") == want
 
 
 @pytest.mark.parametrize("bits,channels,mode", [(16, 1, "indep"), (24, 2, "ms"), (8, 2, "ls")])
@@ -239,6 +258,29 @@ def test_remap_unpickler_blocks_arbitrary_globals():
 
     with pytest.raises(pickle.UnpicklingError, match="Blocked unpickling"):
         loads_remapped(pickle.dumps({"x": Evil()}))
+
+
+def test_remap_unpickler_blocks_a_pickle_nested_in_torch_storage(tmp_path):
+    """``torch.storage._load_from_bytes`` unpickles the bytes it is given
+    with ``weights_only=False``: an ``_extra_state_`` that hides an
+    ``os.system`` pickle in it must be refused before anything runs, both
+    alone and through ``convert_torch_checkpoint``."""
+    marker = tmp_path / "ran"
+
+    class Inner:
+        def __reduce__(self):
+            return (os.system, (f"touch {marker}",))
+
+    class Outer:
+        def __reduce__(self):
+            return (torch.storage._load_from_bytes, (pickle.dumps(Inner()),))
+
+    payload = pickle.dumps({"tokenizers.tokenizer": Outer()})
+    assert b"_load_from_bytes" in payload
+    with pytest.raises(pickle.UnpicklingError, match="torch.storage._load_from_bytes"):
+        loads_remapped(payload)
+    assert extract_extra_state({"_extra_state_": np.frombuffer(payload, np.uint8)}) is None
+    assert not marker.exists()
 
 
 @pytest.mark.parametrize("fname", ["pytorch_model.bin", "model.safetensors"])

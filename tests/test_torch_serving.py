@@ -8,17 +8,26 @@ but sum in other orders, so single logits differ by about one bf16 ulp.
 - With ``beam_size=1`` every choice is an argmax over the vocabulary:
   captions must be equal, and the per-token average lprobs agree within
   1e-2.
-- With beam search the final choice compares the beams' average lprobs,
-  which the random weights leave within a few thousandths of each other,
-  so one ulp can pick the other beam (a rounding effect that the JAX
-  package shows between its own exact decode formulations at bf16). There
-  the lprobs must agree within 5e-2; captions are not compared.
+- With beam search the final choice compares the beams' average lprobs.
+  The random decoder leaves them within a few thousandths of each other,
+  so one ulp can pick the other beam. Two witnesses hold beam search to
+  equal captions all the same: the same files through both packages'
+  ``caption_corpus`` with their bf16 casts made f32 (no rounding to
+  differ by, so beam reordering and batching must agree exactly), and the
+  bf16 path as shipped on a decoder whose classifier is scaled by 8, which
+  separates the beams by more than a rounding can move them.
 """
+
+import inspect
+import sys
+import types
 
 import jax
 import numpy as np
 import pytest
 
+import conette_tpu.serving as jax_serving
+import conette_torch.serving as port_serving
 from conette_tpu.huggingface.config import CoNeTTEConfig as JaxConfig
 from conette_tpu.huggingface.model import CoNeTTEModel as JaxModel
 from conette_tpu.models.conette import conette_init as jax_conette_init
@@ -32,7 +41,9 @@ from conette_torch.utils.audio_io import save_wav
 from conette_torch.utils.flac import save_flac
 
 LPROB_ATOL = 1e-2       # argmax decode (beam_size=1)
-BEAM_LPROB_ATOL = 5e-2  # beam search, near-tied beams
+BEAM_LPROB_ATOL = 5e-2  # beam search at bf16
+F32_LPROB_ATOL = 1e-5   # both serving paths at f32
+SHARP = 8.0             # classifier scale of the decoder with separated beams
 CORPUS = [
     "a bird sings in the rain",
     "an engine hums and water flows",
@@ -43,8 +54,7 @@ CLIPS = [(0.7, 32_000, "wav"), (2.2, 44_100, "flac"), (0.9, 32_000, "flac"),
          (1.8, 32_000, "wav"), (2.6, 44_100, "wav")]
 
 
-@pytest.fixture(scope="module")
-def models(tmp_path_factory):
+def _save_and_load(tmp_path_factory, classifier_scale: float = 1.0):
     tok = JaxTokenizer()
     tok.fit(CORPUS)
     cfg = JaxConfig(d_model=32, nhead=2, num_decoder_layers=2, dim_feedforward=64,
@@ -57,10 +67,35 @@ def models(tmp_path_factory):
             block["scale"] = (rng.standard_normal(block["scale"].shape) * 0.1).astype(np.float32)
     probe = JaxModel(cfg, encoder_params=enc, seed=0)
     params = jax_conette_init(jax.random.PRNGKey(1), probe.model_cfg._replace(proj_in=128))
+    params = jax.tree.map(np.asarray, params)
+    params["decoder"]["classifier"]["weight"] = params["decoder"]["classifier"]["weight"] * classifier_scale
     jax_model = JaxModel(cfg, encoder_params=enc, model_params=params)
     path = tmp_path_factory.mktemp("ckpt")
     jax_model.save_pretrained(str(path))
     return jax_model, CoNeTTEModel.from_pretrained(str(path), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    return _save_and_load(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def sharp_models(tmp_path_factory):
+    return _save_and_load(tmp_path_factory, SHARP)
+
+
+def _at_f32(module: types.ModuleType) -> types.ModuleType:
+    """The serving module with its bf16 casts (encoder compute type and
+    memory) made f32, built from its own source; the package is unchanged."""
+    src = inspect.getsource(module)
+    bf16 = "jnp.bfloat16" if "jnp.bfloat16" in src else "torch.bfloat16"
+    assert src.count(bf16) >= 2, module.__name__
+    mod = types.ModuleType(f"{module.__name__}_at_f32")
+    sys.modules[mod.__name__] = mod  # dataclasses look their module up
+    exec(compile(src.replace(bf16, bf16.replace("bfloat16", "float32")), module.__file__, "exec"),
+         mod.__dict__)
+    return mod
 
 
 @pytest.fixture(scope="module")
@@ -90,13 +125,33 @@ def test_caption_corpus_matches_jax(models, files):
     np.testing.assert_allclose([r.lprob for r in got], [r.lprob for r in want], atol=LPROB_ATOL)
 
 
-def test_caption_corpus_beam_search_near_jax(models, files):
+@pytest.mark.parametrize("beam", [2, 3])
+def test_caption_corpus_beam_search_at_f32_equals_jax(models, files, beam):
+    """The decoder whose beams the bf16 path flips, with both serving paths
+    at f32: equal captions and lprobs, so the flips come from bf16 rounding
+    alone and not from bucketing, padding or beam reordering."""
     jax_model, port = models
-    want = jax_caption_corpus(jax_model, files, task=TASKS, batch_size=2)
-    got = caption_corpus(port, files, task=TASKS, batch_size=2)
+    want = _at_f32(jax_serving).caption_corpus(jax_model, files, task=TASKS, batch_size=2,
+                                               beam_size=beam)
+    got = _at_f32(port_serving).caption_corpus(port, files, task=TASKS, batch_size=2,
+                                               beam_size=beam)
     assert [r.fname for r in got] == files and [r.task for r in got] == TASKS
+    assert [r.caption for r in got] == [r.caption for r in want]
     np.testing.assert_allclose([r.lprob for r in got], [r.lprob for r in want],
-                               atol=BEAM_LPROB_ATOL)
+                               atol=F32_LPROB_ATOL)
+
+
+def test_caption_corpus_beam_search_near_jax(sharp_models, files):
+    """The bf16 path as shipped, at beam 2 (the model's) and 3, on a decoder
+    whose beams are separated: equal captions."""
+    jax_model, port = sharp_models
+    for beam in (None, 3):
+        want = jax_caption_corpus(jax_model, files, task=TASKS, batch_size=2, beam_size=beam)
+        got = caption_corpus(port, files, task=TASKS, batch_size=2, beam_size=beam)
+        assert [r.fname for r in got] == files and [r.task for r in got] == TASKS
+        assert [r.caption for r in got] == [r.caption for r in want], beam
+        np.testing.assert_allclose([r.lprob for r in got], [r.lprob for r in want],
+                                   atol=BEAM_LPROB_ATOL)
 
 
 def test_caption_corpus_one_task_for_all(models, files):
