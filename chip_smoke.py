@@ -9,10 +9,15 @@ Phases (any failure exits non-zero):
    build the CUDA kernels from ``conette_torch/csrc`` into ``build/``;
 2. hold each kernel against its plain PyTorch version at every main-path
    shape (batch 8; block and seam in bf16 with layer scale N(0, 0.1), max
-   relative error < 0.02; log-mel on 8 x 10 s of waveform at f32 and bf16
+   relative error < 0.02; the block also at two ragged shapes, stage 4 of
+   a 1 s clip at batch 8 and stage 1 at batch 1, and bit-equal over two
+   launches; log-mel on 8 x 10 s of waveform at f32 and bf16
    compute, with and without the bn0 affine, within the tolerances at
    ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``), and time both with CUDA
-   events (median of 25 runs after a warm-up), and the log-mel kernel also
+   events (median of 25 runs after a warm-up): the block both through its
+   wrapper (``ms``) and as the launch alone on operands prepared outside
+   the timed region (``launch_ms``), and at other splits of its hidden
+   layer where its tiles do not fill the card; the log-mel kernel also
    against the unfused bf16 frontend it replaces;
 3. build a full-width CoNeTTE (ConvNeXt-Tiny, 6-layer 256-wide decoder,
    8 heads, ff 2048, beam 3, 3..20 tokens) from a seed, with a tokenizer
@@ -48,6 +53,11 @@ BATCH = 8
 # (T, F, C, blocks) of each stage for a 10 s clip, and the seam inputs
 STAGES = [(252, 56, 96, 3), (126, 28, 192, 3), (63, 14, 384, 9), (31, 7, 768, 3)]
 SEAMS = [(252, 56, 96), (126, 28, 192), (63, 14, 384)]
+# block shapes off the 10 s path, checked but not counted a request: stage 4
+# of the 1 s corpus bucket at batch 8 (168 pixels, a ragged last tile) and
+# stage 1 at batch 1; (B, T, F, C, blocks)
+RAGGED_BLOCKS = [(8, 3, 7, 768, 0), (1, 252, 56, 96, 0)]
+SPLITS_TRIED = (1, 2, 3, 4, 5, 6, 8)  # hidden-layer splits timed where tiles < SMs
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
@@ -102,12 +112,15 @@ def check_kernels(dev) -> list[dict]:
     shapes; returns per-shape records."""
     import torch
 
-    from conette_torch.kernels.convnext_block import convnext_block_reference, fused_convnext_block
+    from conette_torch.kernels.convnext_block import (
+        block_plan, convnext_block_reference, fused_convnext_block, launch_block,
+        prepare_block_operands, sm_count,
+    )
     from conette_torch.kernels.downsample import downsample_reference, fused_downsample
 
     gen = torch.Generator().manual_seed(0)
     records = []
-    for t, f, c, depth in STAGES:
+    for b, t, f, c, depth in [(BATCH, *s) for s in STAGES] + RAGGED_BLOCKS:
         h = 4 * c
         args = (
             randn(gen, (7, 7, 1, c), 0.1, dev), randn(gen, (c,), 0.1, dev),
@@ -116,22 +129,36 @@ def check_kernels(dev) -> list[dict]:
             randn(gen, (h, c), 0.05, dev), randn(gen, (c,), 0.05, dev),
             randn(gen, (c,), 0.1, dev),  # layer scale N(0, 0.1)
         )
-        x = randn(gen, (BATCH, t, f, c), 0.5, dev, torch.bfloat16)
+        x = randn(gen, (b, t, f, c), 0.5, dev, torch.bfloat16)
         got = fused_convnext_block(x, *args)
+        again = fused_convnext_block(x, *args)
         want = convnext_block_reference(x, *args)
         torch.cuda.synchronize()
         abs_err, rel_err = errors(want, got)
-        p = t * f
-        flops = BATCH * (2 * p * c * 2 * h + 98 * p * c)
-        nbytes = BATCH * 2 * p * c * 2 + 2 * c * h * 2 + 4 * (49 * c + 5 * c + h)
+        same_bits = bool(torch.equal(got.view(torch.int16), again.view(torch.int16)))
+        p = b * t * f
+        flops = 2 * p * c * 2 * h + 98 * p * c
+        nbytes = 2 * p * c * 2 + 2 * c * h * 2 + 4 * (49 * c + 5 * c + h)
         bms, by = bound_ms(flops, nbytes)
-        records.append(dict(
-            kernel="convnext_block", shape=[BATCH, t, f, c], per_request=depth,
-            max_abs_err=abs_err, max_rel_err=rel_err, ok=rel_err < TOL,
+        # the launch alone, on operands prepared outside the timed region
+        ops = prepare_block_operands(*args)
+        plan = block_plan(p, c, sm_count(dev))
+        rec = dict(
+            kernel="convnext_block", shape=[b, t, f, c], per_request=depth, splits=plan.splits,
+            max_abs_err=abs_err, max_rel_err=rel_err, ok=rel_err < TOL and same_bits,
+            same_bits_twice=same_bits,
             ms=time_ms(lambda: fused_convnext_block(x, *args)),
+            launch_ms=time_ms(lambda: launch_block(x, ops, plan)),
             plain_ms=time_ms(lambda: convnext_block_reference(x, *args)),
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
-        ))
+        )
+        if plan.tiles < sm_count(dev) and depth:  # the launch at other splits of the hidden layer
+            rec["launch_ms_by_splits"] = {
+                s: time_ms(lambda: launch_block(x, ops, plan._replace(
+                    splits=s, scratch_shape=(s, p, c) if s > 1 else None)))
+                for s in SPLITS_TRIED if s <= h // 64
+            }
+        records.append(rec)
     for t, f, c in SEAMS:
         args = (
             randn(gen, (c,), 0.1, dev, shift=1.0), randn(gen, (c,), 0.05, dev),
@@ -157,9 +184,13 @@ def check_kernels(dev) -> list[dict]:
     for r in records:
         print(f"  {r['kernel']:15s} {r['shape']}{r.get('variant', '')}: abs err "
               f"{r['max_abs_err']:.2e}, rel err {r['max_rel_err']:.2e}, "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"kernel {r['ms']:.4f} ms"
+              + (f" (launch {r['launch_ms']:.4f} ms, S={r['splits']})" if "launch_ms" in r else "")
+              + f", plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-              + (f", unfused frontend {r['unfused_ms']:.4f} ms" if "unfused_ms" in r else ""),
+              + (f", unfused frontend {r['unfused_ms']:.4f} ms" if "unfused_ms" in r else "")
+              + (f", launch ms by splits {r['launch_ms_by_splits']}"
+                 if "launch_ms_by_splits" in r else ""),
               flush=True)
         if not r["ok"]:
             raise AssertionError(f"{r['kernel']} at {r['shape']} disagrees with its plain version")
@@ -553,8 +584,12 @@ def device_busy(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
             if e.device_type == DeviceType.CUDA]
     device = sum(ms for _, ms in rows)
     top = sorted(rows, key=lambda r: -r[1])[:5]
-    ours = {name: sum(ms for k, ms in rows if f"{name}_kernel" in k)
-            for name in ("logmel_bf16", "convnext_block", "downsample")}
+    kernels = {"logmel_bf16": ("logmel_bf16_kernel",),
+               "convnext_block": ("block_pack_kernel", "block_dwln_kernel",
+                                  "convnext_block_kernel", "block_reduce_kernel"),
+               "downsample": ("downsample_kernel",)}
+    ours = {name: sum(ms for k, ms in rows if any(n in k for n in names))
+            for name, names in kernels.items()}
     return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
             "top": [[k[:60], round(ms, 3)] for k, ms in top], "ours_ms": ours}
 
@@ -580,12 +615,15 @@ def kernel_line(records: list[dict], launches: dict) -> dict:
             # per request of 8 x 10 s clips: every launch at its stage's shape
             "ms": sum(r["per_request"] * r["ms"] for r in rs),
             "plain_ms": sum(r["per_request"] * r["plain_ms"] for r in rs),
+            **({"launch_ms": sum(r["per_request"] * r["launch_ms"] for r in rs)}
+               if all("launch_ms" in r for r in rs) else {}),
             "bound_ms": sum(r["per_request"] * r["bound_ms"] for r in rs),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
-            "shapes": [{k: r[k] for k in ("shape", "variant", "per_request", "ms", "plain_ms",
-                                          "unfused_ms", "bound_ms", "bound_by", "max_abs_err",
-                                          "max_rel_err") if k in r} for r in rs],
+            "shapes": [{k: r[k] for k in ("shape", "variant", "per_request", "splits", "ms",
+                                          "launch_ms", "plain_ms", "unfused_ms", "bound_ms",
+                                          "bound_by", "max_abs_err", "max_rel_err") if k in r}
+                       for r in rs],
         })
     return {"kernels": out}
 

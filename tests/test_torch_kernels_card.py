@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card, at the main path's stage and seam shapes (bf16, batch 2).
+the card, at the main path's stage and seam shapes (bf16, batch 2), and
+the block kernel at two ragged shapes.
 
 A CUDA kernel has no CPU mode, so these tests skip without an sm_90
 device. This file imports neither JAX nor conette_tpu, so it also runs
@@ -13,7 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from conette_torch.kernels.convnext_block import convnext_block_reference, fused_convnext_block
+from conette_torch.kernels.convnext_block import (
+    block_plan,
+    convnext_block_reference,
+    fused_convnext_block,
+    launch_block,
+    pack_block_weights,
+    prepare_block_operands,
+    work_size,
+)
 from conette_torch.kernels.downsample import downsample_reference, fused_downsample
 from conette_torch.kernels.logmel import fused_logmel, logmel_reference
 from conette_torch.models.convnext import convnext_apply
@@ -39,9 +48,15 @@ def rel_err(want, got):
     return float((want.float() - got.float()).abs().max() / want.float().abs().max().clamp_min(1e-6))
 
 
-@pytest.mark.parametrize("t,f,c", STAGES)
-def test_block_kernel_matches_plain_on_card(h100, t, f, c):
-    rng = np.random.default_rng(c)
+# each stage at batch 2 (stages 3 and 4 split the hidden layer over CTAs),
+# stage 4 of a 1 s clip at batch 8 (168 pixels: a ragged last tile, split
+# 44 ways) and stage 1 at batch 1
+BLOCK_SHAPES = [(2, t, f, c) for t, f, c in STAGES] + [(8, 3, 7, 768), (1, 252, 56, 96)]
+
+
+@pytest.mark.parametrize("b,t,f,c", BLOCK_SHAPES)
+def test_block_kernel_matches_plain_on_card(h100, b, t, f, c):
+    rng = np.random.default_rng(c + b)
     args = (
         _randn(rng, (7, 7, 1, c), 0.1, h100), _randn(rng, (c,), 0.1, h100),
         _randn(rng, (c,), 0.1, h100, shift=1.0), _randn(rng, (c,), 0.1, h100),
@@ -49,12 +64,34 @@ def test_block_kernel_matches_plain_on_card(h100, t, f, c):
         _randn(rng, (4 * c, c), 0.05, h100), _randn(rng, (c,), 0.05, h100),
         _randn(rng, (c,), 0.1, h100),  # layer scale N(0, 0.1)
     )
-    x = _randn(rng, (2, t, f, c), 0.5, h100, torch.bfloat16)
+    x = _randn(rng, (b, t, f, c), 0.5, h100, torch.bfloat16)
     n = fused_convnext_block.launches
     got = fused_convnext_block(x, *args, eps=EPS)
+    again = fused_convnext_block(x, *args, eps=EPS)
     torch.cuda.synchronize()
-    assert fused_convnext_block.launches == n + 1
+    assert fused_convnext_block.launches == n + 2
     assert rel_err(convnext_block_reference(x, *args, eps=EPS), got) < 0.02
+    # the split's partial sums are added in a fixed order: the same bits
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("c", [96, 192, 384, 768])
+def test_block_pack_kernel_writes_the_plain_layout(h100, c):
+    """The launch's pack kernel writes W1 and W2 in ``pack_block_weights``
+    order, then the depthwise weights and the layer scale, all as bf16
+    rounded like ``Tensor.to(torch.bfloat16)``, bit for bit."""
+    rng = np.random.default_rng(c)
+    args = [_randn(rng, shape, 0.1, h100) for shape in
+            ((7, 7, 1, c), (c,), (c,), (c,), (c, 4 * c), (4 * c,), (4 * c, c), (c,), (c,))]
+    x = _randn(rng, (1, 7, 7, c), 0.5, h100, torch.bfloat16)
+    ops = prepare_block_operands(*args)
+    work = torch.empty(work_size(c), dtype=torch.bfloat16, device=h100)
+    launch_block(x, ops, block_plan(49, c), EPS, work=work)
+    torch.cuda.synchronize()
+    bf16 = torch.bfloat16
+    want = torch.cat([pack_block_weights(args[4], args[6]), args[0].reshape(-1).to(bf16),
+                      args[8].to(bf16)])
+    assert torch.equal(work.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("t,f,c", STAGES[:3])
