@@ -10,14 +10,17 @@ Phases (any failure exits non-zero):
 2. hold each kernel against its plain PyTorch version at every main-path
    shape (batch 8; block and seam in bf16 with layer scale N(0, 0.1), max
    relative error < 0.02; the block also at two ragged shapes, stage 4 of
-   a 1 s clip at batch 8 and stage 1 at batch 1, and bit-equal over two
-   launches; log-mel on 8 x 10 s of waveform at f32 and bf16
+   a 1 s clip at batch 8 and stage 1 at batch 1, the seam also at the 1 s
+   corpus bucket's three seams (odd T, ragged tiles), both bit-equal over
+   two launches; log-mel on 8 x 10 s of waveform at f32 and bf16
    compute, with and without the bn0 affine, within the tolerances at
    ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``), and time both with CUDA
-   events (median of 25 runs after a warm-up): the block both through its
-   wrapper (``ms``) and as the launch alone on operands prepared outside
-   the timed region (``launch_ms``), and at other splits of its hidden
-   layer where its tiles do not fill the card; the log-mel kernel also
+   events (median of 25 runs after a warm-up): the block and the seam both
+   through their wrappers (``ms``) and as the launch alone on operands
+   prepared outside the timed region (``launch_ms``), and at other splits
+   of the block's hidden layer or slices of the seam's columns where their
+   tiles do not fill the card; the seam beside ``F.layer_norm`` +
+   ``F.conv2d`` (``library_ms``, two calls); the log-mel kernel also
    against the unfused bf16 frontend it replaces;
 3. build a full-width CoNeTTE (ConvNeXt-Tiny, 6-layer 256-wide decoder,
    8 heads, ff 2048, beam 3, 3..20 tokens) from a seed, with a tokenizer
@@ -53,6 +56,9 @@ BATCH = 8
 # (T, F, C, blocks) of each stage for a 10 s clip, and the seam inputs
 STAGES = [(252, 56, 96, 3), (126, 28, 192, 3), (63, 14, 384, 9), (31, 7, 768, 3)]
 SEAMS = [(252, 56, 96), (126, 28, 192), (63, 14, 384)]
+# the seam inputs of the 1 s corpus bucket at batch 8 (101 frames, 27 rows
+# after the stem): odd T at the first two seams, a ragged last tile at all
+RAGGED_SEAMS = [(27, 56, 96), (13, 28, 192), (6, 14, 384)]
 # block shapes off the 10 s path, checked but not counted a request: stage 4
 # of the 1 s corpus bucket at batch 8 (168 pixels, a ragged last tile) and
 # stage 1 at batch 1; (B, T, F, C, blocks)
@@ -116,7 +122,6 @@ def check_kernels(dev) -> list[dict]:
         block_plan, convnext_block_reference, fused_convnext_block, launch_block,
         prepare_block_operands, sm_count,
     )
-    from conette_torch.kernels.downsample import downsample_reference, fused_downsample
 
     gen = torch.Generator().manual_seed(0)
     records = []
@@ -159,41 +164,96 @@ def check_kernels(dev) -> list[dict]:
                 for s in SPLITS_TRIED if s <= h // 64
             }
         records.append(rec)
-    for t, f, c in SEAMS:
+    records += check_seams(dev, gen)
+    records += check_logmel(dev, gen)
+    for r in records:
+        print(f"  {r['kernel']:15s} {r['shape']}{r.get('variant', '')}: abs err "
+              f"{r['max_abs_err']:.2e}, rel err {r['max_rel_err']:.2e}, "
+              f"kernel {r['ms']:.4f} ms"
+              + (f" (launch {r['launch_ms']:.4f} ms, S={r['splits']})" if "splits" in r else "")
+              + (f" (launch {r['launch_ms']:.4f} ms, {r['slices']} slices)" if "slices" in r else "")
+              + f", plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f", unfused frontend {r['unfused_ms']:.4f} ms" if "unfused_ms" in r else "")
+              + (f", layer_norm + conv2d {r['library_ms']:.4f} ms" if "library_ms" in r else "")
+              + (f", launch ms by splits {r['launch_ms_by_splits']}"
+                 if "launch_ms_by_splits" in r else "")
+              + (f", launch ms by slices {r['launch_ms_by_slices']}"
+                 if "launch_ms_by_slices" in r else ""),
+              flush=True)
+        if not r["ok"]:
+            raise AssertionError(f"{r['kernel']} at {r['shape']} disagrees with its plain version")
+    return records
+
+
+def library_seam(x, ln_w, ln_b, conv_w, conv_b, eps: float = 1e-6):
+    """The seam as two PyTorch calls, the yardstick: ``F.layer_norm`` over C
+    on the channels-last bf16 tensor, then cuDNN's ``F.conv2d`` with an OIHW
+    bf16 weight, returned as NHWC (a view, no copy). The port never calls
+    these."""
+    import torch.nn.functional as F
+
+    t = x.shape[1] - x.shape[1] % 2
+    y = F.layer_norm(x[:, :t], (x.shape[-1],), ln_w, ln_b, eps)
+    return F.conv2d(y.permute(0, 3, 1, 2), conv_w, conv_b, stride=2).permute(0, 2, 3, 1)
+
+
+def check_seams(dev, gen) -> list[dict]:
+    """The seam kernel against ``downsample_reference`` at the main path's
+    three seams (batch 8, 10 s clips) and at the 1 s corpus bucket's (odd T
+    at the first two, ragged last tiles), the same bits over two launches;
+    timed through its wrapper (``ms``), as the launch alone on operands
+    prepared outside the timed region (``launch_ms``), at the other slice
+    counts where its tiles do not fill the card, and beside the two-call
+    PyTorch yardstick (``library_ms``)."""
+    import torch
+
+    from conette_torch.kernels.convnext_block import sm_count
+    from conette_torch.kernels.downsample import (
+        downsample_reference, fused_downsample, launch_seam, prepare_seam_operands, seam_plan,
+        slice_counts,
+    )
+
+    records = []
+    for (t, f, c), per_request in [(s, 1) for s in SEAMS] + [(s, 0) for s in RAGGED_SEAMS]:
         args = (
             randn(gen, (c,), 0.1, dev, shift=1.0), randn(gen, (c,), 0.05, dev),
             randn(gen, (2, 2, c, 2 * c), 0.05, dev), randn(gen, (2 * c,), 0.05, dev),
         )
         x = randn(gen, (BATCH, t, f, c), 0.5, dev, torch.bfloat16)
         got = fused_downsample(x, *args)
+        again = fused_downsample(x, *args)
         want = downsample_reference(x, *args)
         torch.cuda.synchronize()
         abs_err, rel_err = errors(want, got)
+        same_bits = bool(torch.equal(got.view(torch.int16), again.view(torch.int16)))
         p_out = (t // 2) * (f // 2)
         flops = BATCH * 2 * p_out * 4 * c * 2 * c
-        nbytes = BATCH * (t * f * c + p_out * 2 * c) * 2 + 4 * c * 2 * c * 2 + 4 * 4 * c
+        nbytes = BATCH * ((t - t % 2) * f * c + p_out * 2 * c) * 2 + 4 * c * 2 * c * 2 + 4 * 4 * c
         bms, by = bound_ms(flops, nbytes)
-        records.append(dict(
-            kernel="downsample", shape=[BATCH, t, f, c], per_request=1,
-            max_abs_err=abs_err, max_rel_err=rel_err, ok=rel_err < TOL,
+        ops = prepare_seam_operands(*args)
+        plan = seam_plan(BATCH * p_out, c, sm_count(dev))
+        # the yardstick's operands, prepared outside its timed region
+        lib = (args[0].to(torch.bfloat16), args[1].to(torch.bfloat16),
+               args[2].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+                   memory_format=torch.channels_last), args[3].to(torch.bfloat16))
+        lib_err = errors(want, library_seam(x, *lib))[1]
+        rec = dict(
+            kernel="downsample", shape=[BATCH, t, f, c], per_request=per_request,
+            slices=plan.slices, max_abs_err=abs_err, max_rel_err=rel_err,
+            ok=rel_err < TOL and same_bits, same_bits_twice=same_bits,
             ms=time_ms(lambda: fused_downsample(x, *args)),
+            launch_ms=time_ms(lambda: launch_seam(x, ops, plan)),
             plain_ms=time_ms(lambda: downsample_reference(x, *args)),
+            library_ms=time_ms(lambda: library_seam(x, *lib)), library_rel_err=lib_err,
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
-        ))
-    records += check_logmel(dev, gen)
-    for r in records:
-        print(f"  {r['kernel']:15s} {r['shape']}{r.get('variant', '')}: abs err "
-              f"{r['max_abs_err']:.2e}, rel err {r['max_rel_err']:.2e}, "
-              f"kernel {r['ms']:.4f} ms"
-              + (f" (launch {r['launch_ms']:.4f} ms, S={r['splits']})" if "launch_ms" in r else "")
-              + f", plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-              + (f", unfused frontend {r['unfused_ms']:.4f} ms" if "unfused_ms" in r else "")
-              + (f", launch ms by splits {r['launch_ms_by_splits']}"
-                 if "launch_ms_by_splits" in r else ""),
-              flush=True)
-        if not r["ok"]:
-            raise AssertionError(f"{r['kernel']} at {r['shape']} disagrees with its plain version")
+        )
+        if plan.tiles < sm_count(dev):  # the launch at the other slice counts
+            rec["launch_ms_by_slices"] = {
+                s: time_ms(lambda: launch_seam(x, ops, seam_plan(BATCH * p_out, c, sm_count(dev), s)))
+                for s in slice_counts(c)
+            }
+        records.append(rec)
     return records
 
 
@@ -587,7 +647,7 @@ def device_busy(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
     kernels = {"logmel_bf16": ("logmel_bf16_kernel",),
                "convnext_block": ("block_pack_kernel", "block_dwln_kernel",
                                   "convnext_block_kernel", "block_reduce_kernel"),
-               "downsample": ("downsample_kernel",)}
+               "downsample": ("seam_pack_kernel", "seam_kernel")}
     ours = {name: sum(ms for k, ms in rows if any(n in k for n in names))
             for name, names in kernels.items()}
     return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
@@ -619,10 +679,15 @@ def kernel_line(records: list[dict], launches: dict) -> dict:
                if all("launch_ms" in r for r in rs) else {}),
             "bound_ms": sum(r["per_request"] * r["bound_ms"] for r in rs),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
-            "shapes": [{k: r[k] for k in ("shape", "variant", "per_request", "splits", "ms",
-                                          "launch_ms", "plain_ms", "unfused_ms", "bound_ms",
-                                          "bound_by", "max_abs_err", "max_rel_err") if k in r}
+            # the seam's yardstick is two calls (F.layer_norm, then F.conv2d)
+            "library_ms": (sum(r["per_request"] * r["library_ms"] for r in rs)
+                           if all("library_ms" in r for r in rs) else None),
+            **({"library_calls": "F.layer_norm + F.conv2d"} if name == "downsample" else {}),
+            "shapes": [{k: r[k] for k in ("shape", "variant", "per_request", "splits", "slices",
+                                          "ms", "launch_ms", "plain_ms", "library_ms",
+                                          "unfused_ms", "bound_ms", "bound_by", "max_abs_err",
+                                          "max_rel_err", "same_bits_twice", "launch_ms_by_splits",
+                                          "launch_ms_by_slices") if k in r}
                        for r in rs],
         })
     return {"kernels": out}

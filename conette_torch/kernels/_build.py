@@ -3,8 +3,9 @@
 On first use, ``conette_torch/csrc/*.cu`` are compiled for Hopper
 (``sm_90a``) by ``nvcc``, one process per source, all started together,
 and linked into one shared library under ``build/conette_torch/`` at the
-repository root. Its file name carries a hash of the sources and flags, so
-an edited source triggers a rebuild. Each C entry point returns the
+repository root. Its file name carries a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags, so an edited source or header
+triggers a rebuild. Each C entry point returns the
 ``cudaError_t`` of its launch; :func:`check` raises on a non-zero code.
 
 Nothing here touches CUDA when the module is imported: the library is
@@ -41,6 +42,10 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def nvcc() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -53,7 +58,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libconette_kernels-{h.hexdigest()[:16]}.so"
@@ -130,7 +135,8 @@ def check(code: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s device."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:

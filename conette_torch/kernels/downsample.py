@@ -7,16 +7,46 @@ by Conv2d(k=2, s=2) from C to 2C, with the hand-written Hopper kernel
 T floors (the last row is dropped); F must be even. For a tensor on the
 CPU it runs :func:`downsample_reference`; for a CUDA tensor it launches the
 kernel or raises.
+
+The design, in short (the source's head note has the whole of it): one
+call launches a pack kernel (W cast to bf16 in ``wgmma``'s core-matrix
+order) and the seam kernel, in which one persistent CTA an SM walks work
+items of ``TILE_ROWS`` = 64 output pixels × one slice of the 2C output
+columns. Warp-specialised roles pass each 2×2 patch position along: a
+producer warp streams the item's W slice through a shared-memory ring of
+``cp.async.bulk`` copies (kept resident where the ring holds it and the
+CTA's items share a slice), two LayerNorm warpgroups copy the position's
+input pixels into a shared-memory A buffer and normalise them in place
+(never in device memory), and an MMA warpgroup multiplies on ``wgmma`` and
+writes the item's rows by bulk copies. Two pieces of it live here, in
+Python that the CPU tests reach:
+
+- :func:`pack_seam_weights` states the packed order of W, so that a work
+  item's columns of one k16 step are one contiguous copy. It is the plain
+  version of the kernel's ``seam_pack_kernel``;
+- :func:`seam_plan` cuts the output columns into slices (of 192 where the
+  tiles fill the card, else as many as it holds) and sizes the persistent
+  grid. K is never split, so two runs give the same bits.
+
+The C entry point is ``conette_downsample(x, ln_w, ln_b, w, bias, work, out,
+B, T, F, C, slices, ctas, device, eps, stream)``: 7 pointers, 7 ints, 1
+float; it launches on ``device`` itself, so the wrapper switches no device.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from conette_torch.kernels import _build
+from conette_torch.kernels.convnext_block import SM_COUNT, sm_count
 from conette_torch.models.layers import conv2d, layer_norm
 
 SUPPORTED_C = (96, 192, 384)
+TILE_ROWS = 64                      # output pixels a CTA
+SLICE_WIDTHS = (192, 128, 96, 64)   # output columns a CTA: the kernel's wgmma widths
 
 
 def downsample_reference(
@@ -34,6 +64,115 @@ def downsample_reference(
     return conv2d({"weight": conv_weight, "bias": conv_bias}, y, stride=(2, 2))
 
 
+class SeamPlan(NamedTuple):
+    """How one seam call is cut: ``tiles`` tiles of ``tile_rows`` output
+    pixels, each in ``slices`` slices of ``slice_width`` output columns, the
+    tiles × slices work items shared by ``ctas`` persistent CTAs."""
+
+    tile_rows: int
+    tiles: int
+    slices: int
+    slice_width: int
+    ctas: int
+
+
+def slice_counts(c: int) -> tuple[int, ...]:
+    """The slice counts the kernel takes at this C, fewest first."""
+    return tuple(sorted({2 * c // w for w in SLICE_WIDTHS if 2 * c % w == 0}))
+
+
+@functools.lru_cache(maxsize=256)
+def seam_plan(n_out: int, c: int, n_sm: int = SM_COUNT, slices: int | None = None) -> SeamPlan:
+    """Cut the 2C output columns into slices of 192 where the tiles fill the
+    card, else into the most slices whose work items one CTA an SM still
+    holds at once (or into ``slices``, where given: ``chip_smoke.py`` times
+    the launch at the other counts where the tiles alone do not fill the
+    card); one persistent CTA an SM, at most one a work item."""
+    tiles = -(-n_out // TILE_ROWS)
+    counts = slice_counts(c)
+    if slices is None:
+        slices = max((s for s in counts if tiles * s <= n_sm), default=counts[0])
+    elif slices not in counts:
+        raise ValueError(f"the seam kernel cuts 2C = {2 * c} columns into {counts} slices, not {slices}")
+    return SeamPlan(TILE_ROWS, tiles, slices, 2 * c // slices, min(tiles * slices, n_sm))
+
+
+def pack_seam_weights(conv_weight: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The (2, 2, C, 2C) conv weight as the (4C, 2C) matrix of K row
+    ``(2i + j)·C + c``, flat in the kernel's order: 8×8 core matrices
+    [k/16][n/8][k/8 % 2][n % 8][k % 8], cast to ``dtype`` in the same copy."""
+    c = conv_weight.shape[2]
+    k, n = 4 * c, 2 * c
+    packed = torch.empty((k // 16, n // 8, 2, 8, 8), dtype=dtype, device=conv_weight.device)
+    # row k = 16·kb + 8·kh + kc, column n = 8·ng + nr
+    packed.copy_(conv_weight.reshape(k // 16, 2, 8, n // 8, 8).permute(0, 3, 1, 4, 2))
+    return packed.reshape(-1)
+
+
+class SeamOperands(NamedTuple):
+    """A seam's parameters as the kernel takes them: contiguous f32, in the
+    C entry point's order (the launch casts and lays out W itself)."""
+
+    ln_w: torch.Tensor    # (C)
+    ln_b: torch.Tensor    # (C)
+    w: torch.Tensor       # (2, 2, C, 2C)
+    bias: torch.Tensor    # (2C)
+
+
+def prepare_seam_operands(
+    ln_weight: torch.Tensor,
+    ln_bias: torch.Tensor,
+    conv_weight: torch.Tensor,
+    conv_bias: torch.Tensor,
+) -> SeamOperands:
+    """The parameters as contiguous f32 (no copy when they already are);
+    raises on what the kernel does not take."""
+    c = ln_weight.shape[-1]
+    if c not in SUPPORTED_C:
+        raise ValueError(f"the seam kernel takes C in {SUPPORTED_C}, got {c}")
+    f32 = torch.float32
+    device = ln_weight.device
+    ops = []
+    for name, v, shape in zip(SeamOperands._fields, (ln_weight, ln_bias, conv_weight, conv_bias),
+                              ((c,), (c,), (2, 2, c, 2 * c), (2 * c,))):
+        if v.dtype != f32 or not v.is_contiguous():
+            v = v.to(f32).contiguous()
+        if v.device != device or v.shape != shape or v.data_ptr() % 32:
+            _build.require(v, name, f32, shape, device)  # raises, naming what is wrong
+        ops.append(v)
+    return SeamOperands(*ops)
+
+
+def launch_seam(x: torch.Tensor, ops: SeamOperands, plan: SeamPlan, eps: float = 1e-6,
+                work: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the seam on prepared operands: the pack kernel (W as bf16 in
+    ``pack_seam_weights`` order, into ``work``) and the seam kernel. Adds
+    one to ``fused_downsample.launches``. ``work`` (bf16, 8·C²) is
+    allocated here unless given."""
+    b, t, f, c = x.shape
+    _build.require(x, "x", torch.bfloat16, (b, t, f, c), ops.w.device)
+    n_out = b * (t // 2) * (f // 2)
+    if (ops.ln_w.shape != (c,) or f % 2 or plan.tiles * plan.tile_rows < n_out
+            or plan.slices * plan.slice_width != 2 * c):
+        raise ValueError(f"operands or plan do not match x of shape {tuple(x.shape)}")
+    # the output, and behind it the packed weights unless given
+    n_o = n_out * 2 * c
+    buf = torch.empty(n_o + (8 * c * c if work is None else 0), dtype=torch.bfloat16,
+                      device=x.device)
+    if work is None:
+        work = buf[n_o:]  # 32-byte aligned: n_o is a multiple of 2·C
+    else:
+        _build.require(work, "work", torch.bfloat16, (8 * c * c,), x.device)
+    out = buf[:n_o].view(b, t // 2, f // 2, 2 * c)
+    code = _build.entry("conette_downsample", 7, 7)(
+        x.data_ptr(), *(o.data_ptr() for o in ops), work.data_ptr(), out.data_ptr(),
+        b, t, f, c, plan.slices, plan.ctas, x.device.index, eps, _build.stream_of(x),
+    )
+    _build.check(code, "conette_downsample")
+    fused_downsample.launches += 1
+    return out
+
+
 def fused_downsample(
     x: torch.Tensor,
     ln_weight: torch.Tensor,
@@ -43,8 +182,8 @@ def fused_downsample(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """(B, T, F, C) → (B, T // 2, F // 2, 2C). On the card ``x`` must be
-    contiguous bf16 with C in ``SUPPORTED_C``. Each launch adds one to
-    ``fused_downsample.launches``."""
+    contiguous bf16 with C in ``SUPPORTED_C``. Each call adds one to
+    ``fused_downsample.launches``; its pack launch is part of the call."""
     if x.dim() != 4 or x.shape[1] < 2:
         raise ValueError(f"expected (B, T >= 2, F, C) activations, got {tuple(x.shape)}")
     b, t, f, c = x.shape
@@ -54,29 +193,8 @@ def fused_downsample(
         return downsample_reference(x, ln_weight, ln_bias, conv_weight, conv_bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_downsample runs on cuda or cpu, got {x.device}")
-    if c not in SUPPORTED_C:
-        raise ValueError(f"the seam kernel takes C in {SUPPORTED_C}, got {c}")
-    dev = x.device
-    bf16, f32 = torch.bfloat16, torch.float32
-    _build.require(x, "x", bf16, (b, t, f, c), dev)
-    w = conv_weight.to(bf16).contiguous()
-    ln_w = ln_weight.to(f32).contiguous()
-    ln_b = ln_bias.to(f32).contiguous()
-    bias = conv_bias.to(f32).contiguous()
-    _build.require(w, "conv_weight", bf16, (2, 2, c, 2 * c), dev)
-    _build.require(ln_w, "ln_weight", f32, (c,), dev)
-    _build.require(ln_b, "ln_bias", f32, (c,), dev)
-    _build.require(bias, "conv_bias", f32, (2 * c,), dev)
-    out = torch.empty((b, t // 2, f // 2, 2 * c), dtype=bf16, device=dev)
-    with torch.cuda.device(dev):
-        fn = _build.entry("conette_downsample", 6, 4)
-        code = fn(
-            x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, t, f, c, eps, _build.stream_of(x),
-        )
-    _build.check(code, "conette_downsample")
-    fused_downsample.launches += 1
-    return out
+    ops = prepare_seam_operands(ln_weight, ln_bias, conv_weight, conv_bias)
+    return launch_seam(x, ops, seam_plan(b * (t // 2) * (f // 2), c, sm_count(x.device)), eps)
 
 
 fused_downsample.launches = 0

@@ -65,8 +65,8 @@ def build(out: Path) -> dict:
     for name, text in variants(src).items():
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", str(out / f"{name}.cu"),
-             "-o", str(out / f"lib{name}.so")],
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-shared",
+             str(out / f"{name}.cu"), "-o", str(out / f"lib{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card, at the main path's stage and seam shapes (bf16, batch 2), and
-the block kernel at two ragged shapes.
+the card, at the main path's stage and seam shapes (bf16, batch 2), the
+block kernel at two ragged shapes, the seam kernel at batch 8 and 1, at the
+1 s corpus bucket's seams and at every slice count, and both pack kernels
+against their plain layouts.
 
 A CUDA kernel has no CPU mode, so these tests skip without an sm_90
 device. This file imports neither JAX nor conette_tpu, so it also runs
@@ -23,7 +25,15 @@ from conette_torch.kernels.convnext_block import (
     prepare_block_operands,
     work_size,
 )
-from conette_torch.kernels.downsample import downsample_reference, fused_downsample
+from conette_torch.kernels.downsample import (
+    downsample_reference,
+    fused_downsample,
+    launch_seam,
+    pack_seam_weights,
+    prepare_seam_operands,
+    seam_plan,
+    slice_counts,
+)
 from conette_torch.kernels.logmel import fused_logmel, logmel_reference
 from conette_torch.models.convnext import convnext_apply
 
@@ -94,21 +104,62 @@ def test_block_pack_kernel_writes_the_plain_layout(h100, c):
     assert torch.equal(work.view(torch.int16), want.view(torch.int16))
 
 
-@pytest.mark.parametrize("t,f,c", STAGES[:3])
-def test_seam_kernel_matches_plain_on_card(h100, t, f, c):
-    rng = np.random.default_rng(c)
-    seam = (
-        _randn(rng, (c,), 0.1, h100, shift=1.0), _randn(rng, (c,), 0.05, h100),
-        _randn(rng, (2, 2, c, 2 * c), 0.05, h100), _randn(rng, (2 * c,), 0.05, h100),
+# each seam at batch 2, 8 (10 s clips) and 1, and the 1 s corpus bucket's
+# seams at batch 8 (odd T at the first two, ragged last tiles)
+SEAM_SHAPES = ([(2, t, f, c) for t, f, c in STAGES[:3]] + [(8, t, f, c) for t, f, c in STAGES[:3]]
+               + [(1, t, f, c) for t, f, c in STAGES[:3]]
+               + [(8, 27, 56, 96), (8, 13, 28, 192), (8, 6, 14, 384)])
+
+
+def _seam_args(rng, c, device):
+    return (
+        _randn(rng, (c,), 0.1, device, shift=1.0), _randn(rng, (c,), 0.05, device),
+        _randn(rng, (2, 2, c, 2 * c), 0.05, device), _randn(rng, (2 * c,), 0.05, device),
     )
-    x = _randn(rng, (2, t, f, c), 0.5, h100, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,t,f,c", SEAM_SHAPES)
+def test_seam_kernel_matches_plain_on_card(h100, b, t, f, c):
+    rng = np.random.default_rng(c + b + t)
+    seam = _seam_args(rng, c, h100)
+    x = _randn(rng, (b, t, f, c), 0.5, h100, torch.bfloat16)
     n = fused_downsample.launches
     got = fused_downsample(x, *seam, eps=EPS)
+    again = fused_downsample(x, *seam, eps=EPS)
     torch.cuda.synchronize()
-    assert fused_downsample.launches == n + 1
+    assert fused_downsample.launches == n + 2
     want = downsample_reference(x, *seam, eps=EPS)
-    assert got.shape == want.shape == (2, t // 2, f // 2, 2 * c)
+    assert got.shape == want.shape == (b, t // 2, f // 2, 2 * c)
     assert rel_err(want, got) < 0.02
+    # K is never split: the same bits
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("t,f,c", STAGES[:3])
+def test_seam_kernel_at_every_slice_count_on_card(h100, t, f, c):
+    """Every slice width the kernel takes gives the plain version's result."""
+    rng = np.random.default_rng(c)
+    ops = prepare_seam_operands(*_seam_args(rng, c, h100))
+    x = _randn(rng, (2, t, f, c), 0.5, h100, torch.bfloat16)
+    want = downsample_reference(x, *ops, eps=EPS)
+    for s in slice_counts(c):
+        got = launch_seam(x, ops, seam_plan(2 * (t // 2) * (f // 2), c, slices=s), EPS)
+        torch.cuda.synchronize()
+        assert rel_err(want, got) < 0.02, s
+
+
+@pytest.mark.parametrize("c", [96, 192, 384])
+def test_seam_pack_kernel_writes_the_plain_layout(h100, c):
+    """The launch's pack kernel writes W in ``pack_seam_weights`` order,
+    rounded like ``Tensor.to(torch.bfloat16)``, bit for bit."""
+    rng = np.random.default_rng(c)
+    ops = prepare_seam_operands(*_seam_args(rng, c, h100))
+    x = _randn(rng, (1, 2, 2, c), 0.5, h100, torch.bfloat16)
+    work = torch.empty(8 * c * c, dtype=torch.bfloat16, device=h100)
+    launch_seam(x, ops, seam_plan(1, c), EPS, work=work)
+    torch.cuda.synchronize()
+    want = pack_seam_weights(ops.w)
+    assert torch.equal(work.view(torch.int16), want.view(torch.int16))
 
 
 def _waveform(rng, b, s, h100):
