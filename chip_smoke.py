@@ -11,10 +11,12 @@ Phases (any failure exits non-zero):
    shape (batch 8; block and seam in bf16 with layer scale N(0, 0.1), max
    relative error < 0.02; the block also at two ragged shapes, stage 4 of
    a 1 s clip at batch 8 and stage 1 at batch 1, the seam also at the 1 s
-   corpus bucket's three seams (odd T, ragged tiles), both bit-equal over
-   two launches; log-mel on 8 x 10 s of waveform at f32 and bf16
-   compute, with and without the bn0 affine, within the tolerances at
-   ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``), and time both with CUDA
+   corpus bucket's three seams (odd T, ragged tiles); log-mel on 8 x 10 s
+   of waveform at f32 and bf16 compute, with and without the bn0 affine,
+   and on the 1 s corpus bucket at bf16 with it, within the tolerances at
+   ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``, its silent tail on the
+   -100 dB floor; every kernel bit-equal over two launches and over the 28
+   launches of its timed wrapper calls), and time them with CUDA
    events (median of 25 runs after a warm-up): the block and the seam both
    through their wrappers (``ms``) and as the launch alone on operands
    prepared outside the timed region (``launch_ms``), and at other splits
@@ -69,6 +71,7 @@ PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL = 0.02
 LOGMEL_SAMPLES = 320_000  # 10 s at 32 kHz -> 1001 frames
+LOGMEL_BUCKET_SAMPLES = 32_000  # the 1 s corpus bucket -> 101 frames
 # log-mel, in dB: at f32 the JAX envelope of its kernel; at bf16 the kernel
 # and its plain version round at the same points and differ by f32 summation
 # order, which can flip one bf16 rounding of a power bin (about 0.017 dB on
@@ -78,27 +81,48 @@ LOGMEL_BF16_ATOL = 0.05
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
-def time_ms(fn, runs: int = 25) -> float:
-    """Median CUDA-event time of ``fn`` over ``runs`` runs after a warm-up."""
+def time_ms(fn, runs: int = 25, check=None) -> float:
+    """Median CUDA-event time of ``fn`` over ``runs`` runs after a warm-up;
+    ``check``, if given, is called on what each call returned, outside the
+    timed region."""
     import torch
 
     for _ in range(3):
-        fn()
+        out = fn()
+        if check is not None:
+            check(out)
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+        if check is not None:
+            check(out)
     return statistics.median(times)
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    bits = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(torch.equal(a.view(bits), b.view(bits)))
+
+
+def timed_same_bits(fn, first) -> tuple[float, bool]:
+    """``time_ms(fn)``, and whether each of its 28 calls gave ``first``'s
+    bits: launches back to back, as a request makes them."""
+    seen = []
+    ms = time_ms(fn, check=lambda out: seen.append(same_bits(first, out)))
+    return ms, all(seen)
 
 
 def errors(want, got) -> tuple[float, float]:
@@ -140,7 +164,8 @@ def check_kernels(dev) -> list[dict]:
         want = convnext_block_reference(x, *args)
         torch.cuda.synchronize()
         abs_err, rel_err = errors(want, got)
-        same_bits = bool(torch.equal(got.view(torch.int16), again.view(torch.int16)))
+        twice = same_bits(got, again)
+        ms, repeated = timed_same_bits(lambda: fused_convnext_block(x, *args), got)
         p = b * t * f
         flops = 2 * p * c * 2 * h + 98 * p * c
         nbytes = 2 * p * c * 2 + 2 * c * h * 2 + 4 * (49 * c + 5 * c + h)
@@ -150,9 +175,8 @@ def check_kernels(dev) -> list[dict]:
         plan = block_plan(p, c, sm_count(dev))
         rec = dict(
             kernel="convnext_block", shape=[b, t, f, c], per_request=depth, splits=plan.splits,
-            max_abs_err=abs_err, max_rel_err=rel_err, ok=rel_err < TOL and same_bits,
-            same_bits_twice=same_bits,
-            ms=time_ms(lambda: fused_convnext_block(x, *args)),
+            max_abs_err=abs_err, max_rel_err=rel_err, ok=rel_err < TOL and twice and repeated,
+            same_bits_twice=twice, same_bits_repeated=repeated, ms=ms,
             launch_ms=time_ms(lambda: launch_block(x, ops, plan)),
             plain_ms=time_ms(lambda: convnext_block_reference(x, *args)),
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
@@ -172,6 +196,8 @@ def check_kernels(dev) -> list[dict]:
               f"kernel {r['ms']:.4f} ms"
               + (f" (launch {r['launch_ms']:.4f} ms, S={r['splits']})" if "splits" in r else "")
               + (f" (launch {r['launch_ms']:.4f} ms, {r['slices']} slices)" if "slices" in r else "")
+              + (f" (launch {r['launch_ms']:.4f} ms)"
+                 if r["kernel"] == "logmel" and "launch_ms" in r else "")
               + f", plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               + (f", unfused frontend {r['unfused_ms']:.4f} ms" if "unfused_ms" in r else "")
@@ -179,10 +205,17 @@ def check_kernels(dev) -> list[dict]:
               + (f", launch ms by splits {r['launch_ms_by_splits']}"
                  if "launch_ms_by_splits" in r else "")
               + (f", launch ms by slices {r['launch_ms_by_slices']}"
-                 if "launch_ms_by_slices" in r else ""),
+                 if "launch_ms_by_slices" in r else "")
+              + (f", bound over all columns {r['bound_ms_all_columns']:.4f} ms"
+                 if "bound_ms_all_columns" in r else "")
+              + (f", L2 basis {r['l2_basis_mb']:.1f} MB" if "l2_basis_mb" in r else "")
+              + f", same bits twice {r['same_bits_twice']}, repeated {r['same_bits_repeated']}",
               flush=True)
         if not r["ok"]:
-            raise AssertionError(f"{r['kernel']} at {r['shape']} disagrees with its plain version")
+            raise AssertionError(
+                f"{r['kernel']} at {r['shape']}{r.get('variant', '')} fails its check: error "
+                f"{r['max_abs_err']:.3e} abs, {r['max_rel_err']:.3e} rel, same bits twice "
+                f"{r['same_bits_twice']}, repeated {r['same_bits_repeated']}")
     return records
 
 
@@ -226,7 +259,8 @@ def check_seams(dev, gen) -> list[dict]:
         want = downsample_reference(x, *args)
         torch.cuda.synchronize()
         abs_err, rel_err = errors(want, got)
-        same_bits = bool(torch.equal(got.view(torch.int16), again.view(torch.int16)))
+        twice = same_bits(got, again)
+        ms, repeated = timed_same_bits(lambda: fused_downsample(x, *args), got)
         p_out = (t // 2) * (f // 2)
         flops = BATCH * 2 * p_out * 4 * c * 2 * c
         nbytes = BATCH * ((t - t % 2) * f * c + p_out * 2 * c) * 2 + 4 * c * 2 * c * 2 + 4 * 4 * c
@@ -241,8 +275,8 @@ def check_seams(dev, gen) -> list[dict]:
         rec = dict(
             kernel="downsample", shape=[BATCH, t, f, c], per_request=per_request,
             slices=plan.slices, max_abs_err=abs_err, max_rel_err=rel_err,
-            ok=rel_err < TOL and same_bits, same_bits_twice=same_bits,
-            ms=time_ms(lambda: fused_downsample(x, *args)),
+            ok=rel_err < TOL and twice and repeated, same_bits_twice=twice,
+            same_bits_repeated=repeated, ms=ms,
             launch_ms=time_ms(lambda: launch_seam(x, ops, plan)),
             plain_ms=time_ms(lambda: downsample_reference(x, *args)),
             library_ms=time_ms(lambda: library_seam(x, *lib)), library_rel_err=lib_err,
@@ -271,13 +305,22 @@ def random_bn0(gen, dev) -> dict:
 def check_logmel(dev, gen) -> list[dict]:
     """The log-mel kernel against ``logmel_reference`` on 8 x 10 s of
     waveform (noise and a chirp; the last clip ends in a second of
-    silence), at both compute types, with and without the bn0 affine. The
-    main path runs bf16 with the affine (1 launch a request); the unfused
-    bf16 frontend that route replaces (``logmel_spectrogram`` +
+    silence, which must sit on the -100 dB floor without the affine), at
+    both compute types, with and without the bn0 affine, and at the 1 s
+    corpus bucket (8 x 32 000 samples) at bf16 with the affine; the same
+    bits over two launches and over the timed calls; the launch alone
+    (``launch_ms``, operands and ``x`` prepared outside the timed region).
+    The main path runs bf16 with the affine (1 launch a request); there the
+    records also carry the L2 bytes of basis that its CTAs read (from
+    shapes: each CTA reads every live column once) and the unfused bf16
+    frontend that route replaces (``logmel_spectrogram`` +
     ``batch_norm_inference``) is timed beside it."""
     import torch
 
-    from conette_torch.kernels.logmel import fused_logmel, logmel_reference
+    from conette_torch.kernels.logmel import (
+        TILE_FRAMES, _identity_affine, _operands, fused_logmel, launch_logmel, live_range,
+        logmel_reference,
+    )
     from conette_torch.models.convnext import bn0_affine
     from conette_torch.models.layers import batch_norm_inference
     from conette_torch.ops.frontend import DEFAULT_LOGMEL, _mel_matrix, logmel_spectrogram
@@ -288,43 +331,70 @@ def check_logmel(dev, gen) -> list[dict]:
     chirp = (0.3 * torch.sin(2 * torch.pi * 440 * t * (1 + t))).float()
     x = (torch.randn((BATCH, n), generator=gen) * 0.05 + chirp).to(dev)
     x[-1, n - 32000:] = 0.0
+    waves = {n: x, LOGMEL_BUCKET_SAMPLES: x[:, :LOGMEL_BUCKET_SAMPLES].contiguous()}
     bn = random_bn0(gen, dev)
     scale, shift = bn0_affine(bn)
-    frames = 1 + n // 320
-    # the least work: a multiply-add for each nonzero entry of the windowed
-    # DFT basis (1024 x 1026, a zero row and two zero columns) and of the
-    # mel filterbank (513 x 224, over 99 % zeros), for each frame
-    nnz = int(np.count_nonzero(dft_basis(1024))), int(np.count_nonzero(_mel_matrix(DEFAULT_LOGMEL)))
-    flops = BATCH * frames * 2 * sum(nnz)
+    # the least work: a multiply-add a frame for each nonzero basis entry of
+    # the frequencies that the filterbank reads (its live rows: 446 x 2 x
+    # 1023 at fmax 14 kHz) and for each nonzero filterbank entry (884);
+    # bound_ms_all_columns counts every nonzero basis entry (1024 x 1026, a
+    # zero row and two zero columns) instead
+    first, last = live_range(DEFAULT_LOGMEL)
+    basis = dft_basis(1024)
+    live_nnz = int(np.count_nonzero(basis[:, first:last + 1])
+                   + np.count_nonzero(basis[:, 513 + first:513 + last + 1]))
+    all_nnz = int(np.count_nonzero(basis))
+    fb_nnz = int(np.count_nonzero(_mel_matrix(DEFAULT_LOGMEL)))
+    cases = [(n, torch.bfloat16, True), (n, torch.bfloat16, False), (n, torch.float32, True),
+             (n, torch.float32, False), (LOGMEL_BUCKET_SAMPLES, torch.bfloat16, True)]
     records = []
-    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        for affine in (True, False):
-            kw = dict(bn_scale=scale, bn_shift=shift) if affine else {}
-            got = fused_logmel(x, compute_dtype=dtype, **kw)
-            want = logmel_reference(x, compute_dtype=dtype, **kw)
-            torch.cuda.synchronize()
-            abs_err, rel_err = errors(want, got)
-            if dtype == torch.float32:
-                ok = bool(torch.allclose(got, want, **LOGMEL_F32_TOL))
-            else:
-                gain = float(scale.abs().max()) if affine else 1.0
-                ok = abs_err <= LOGMEL_BF16_ATOL * gain
-            width = 2 if dtype == torch.bfloat16 else 4
-            nbytes = BATCH * n * 4 + BATCH * frames * 224 * 4 + width * sum(nnz)
-            bms, by = bound_ms(flops, nbytes,
-                               PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
-            rec = dict(
-                kernel="logmel", shape=[BATCH, n], variant=f" {name}{' +bn0' if affine else ''}",
-                per_request=int(dtype == torch.bfloat16 and affine),
-                max_abs_err=abs_err, max_rel_err=rel_err, ok=ok,
-                ms=time_ms(lambda: fused_logmel(x, compute_dtype=dtype, **kw)),
-                plain_ms=time_ms(lambda: logmel_reference(x, compute_dtype=dtype, **kw)),
-                bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
-            )
-            if dtype == torch.bfloat16 and affine:
+    for samples, dtype, affine in cases:
+        xs = waves[samples]
+        frames = 1 + samples // 320
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        kw = dict(bn_scale=scale, bn_shift=shift) if affine else {}
+        got = fused_logmel(xs, compute_dtype=dtype, **kw)
+        again = fused_logmel(xs, compute_dtype=dtype, **kw)
+        want = logmel_reference(xs, compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(want, got)
+        twice = same_bits(got, again)
+        ms, repeated = timed_same_bits(lambda: fused_logmel(xs, compute_dtype=dtype, **kw), got)
+        if dtype == torch.float32:
+            ok = bool(torch.allclose(got, want, **LOGMEL_F32_TOL))
+        else:
+            gain = float(scale.abs().max()) if affine else 1.0
+            ok = abs_err <= LOGMEL_BF16_ATOL * gain
+        floor_err = None
+        if not affine:  # the last second of the last clip is silent: frames -40.. lie in it
+            floor_err = float((got[-1, -40:] + 100.0).abs().max())
+            ok = ok and floor_err <= 1e-4
+        width = 2 if dtype == torch.bfloat16 else 4
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        flops = BATCH * frames * 2 * (live_nnz + fb_nnz)
+        nbytes = BATCH * samples * 4 + BATCH * frames * 224 * 4 + width * (live_nnz + fb_nnz)
+        bms, by = bound_ms(flops, nbytes, peak)
+        bms_all = bound_ms(BATCH * frames * 2 * (all_nnz + fb_nnz),
+                           nbytes + width * (all_nnz - live_nnz), peak)[0]
+        ops = _operands(DEFAULT_LOGMEL, xs.device, dtype)
+        sc, sh = (scale.contiguous(), shift.contiguous()) if affine else _identity_affine(xs.device)
+        rec = dict(
+            kernel="logmel", shape=[BATCH, samples], variant=f" {name}{' +bn0' if affine else ''}",
+            per_request=int(samples == n and dtype == torch.bfloat16 and affine),
+            max_abs_err=abs_err, max_rel_err=rel_err, ok=ok and twice and repeated,
+            same_bits_twice=twice, same_bits_repeated=repeated, ms=ms,
+            launch_ms=time_ms(lambda: launch_logmel(xs, ops, sc, sh)),
+            plain_ms=time_ms(lambda: logmel_reference(xs, compute_dtype=dtype, **kw)),
+            bound_ms=bms, bound_by=by, bound_ms_all_columns=bms_all, flops=flops, bytes=nbytes,
+        )
+        if floor_err is not None:
+            rec["silent_floor_abs_err"] = floor_err
+        if dtype == torch.bfloat16 and affine:
+            rec["l2_basis_mb"] = BATCH * -(-frames // TILE_FRAMES) * ops.basis.numel() * 2 / 1e6
+            if samples == n:
                 rec["unfused_ms"] = time_ms(lambda: batch_norm_inference(
-                    bn, logmel_spectrogram(x, compute_dtype=torch.bfloat16)))
-            records.append(rec)
+                    bn, logmel_spectrogram(xs, compute_dtype=torch.bfloat16)))
+        records.append(rec)
     return records
 
 
@@ -686,8 +756,8 @@ def kernel_line(records: list[dict], launches: dict) -> dict:
             "shapes": [{k: r[k] for k in ("shape", "variant", "per_request", "splits", "slices",
                                           "ms", "launch_ms", "plain_ms", "library_ms",
                                           "unfused_ms", "bound_ms", "bound_by", "max_abs_err",
-                                          "max_rel_err", "same_bits_twice", "launch_ms_by_splits",
-                                          "launch_ms_by_slices") if k in r}
+                                          "max_rel_err", "same_bits_twice", "same_bits_repeated",
+                                          "launch_ms_by_splits", "launch_ms_by_slices") if k in r}
                        for r in rs],
         })
     return {"kernels": out}

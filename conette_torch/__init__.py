@@ -37,7 +37,9 @@ def conette(
     **kwargs,
 ):
     """Build a ``CoNeTTEModel``: loaded from a directory when a path is
-    given, freshly initialised from a seed when ``None``."""
+    given, freshly initialised from a seed when ``None``. ``config_kwds``
+    override the directory's config (the reference's copy of this function
+    passes its config to ``__init__`` twice and raises there)."""
     from conette_torch.huggingface.config import CoNeTTEConfig
     from conette_torch.huggingface.model import CoNeTTEModel
 

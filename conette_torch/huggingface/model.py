@@ -293,13 +293,21 @@ class CoNeTTEModel:
         cls,
         pretrained_model_name_or_path: str,
         device: torch.device | str | None = None,
+        offline: bool = False,
+        token: str | None = None,
         verbose: int = 0,
+        config: CoNeTTEConfig | None = None,
         **kwargs: Any,
     ) -> "CoNeTTEModel":
         """Load a directory with ``config.json`` and either ``params.npz``
         or the reference's torch checkpoint (``model.safetensors`` /
         ``pytorch_model.bin``); a checkpoint's pickled tokenizer state is
-        used when ``config.json`` has none."""
+        used when ``config.json`` has none. ``config``, when given, is used
+        instead of the directory's ``config.json`` (``conette(path,
+        config_kwds=...)`` passes one). ``offline`` and ``token`` are the
+        reference's Hub options; a local directory needs neither, and a
+        path that is not one raises ``FileNotFoundError`` whatever they are."""
+        del offline, token  # no Hub download here: local directories only
         path = pretrained_model_name_or_path
         if not os.path.isdir(path):
             raise FileNotFoundError(
@@ -313,7 +321,8 @@ class CoNeTTEModel:
                 "Loading a train-run directory comes with the training slice "
                 "of conette_torch; export it with save_pretrained first."
             )
-        config = CoNeTTEConfig.from_pretrained(path)
+        if config is None:
+            config = CoNeTTEConfig.from_pretrained(path)
 
         names_file = os.path.join(path, "audioset_names.json")
         if os.path.isfile(names_file):

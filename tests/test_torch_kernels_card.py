@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card, at the main path's stage and seam shapes (bf16, batch 2), the
 block kernel at two ragged shapes, the seam kernel at batch 8 and 1, at the
-1 s corpus bucket's seams and at every slice count, and both pack kernels
-against their plain layouts.
+1 s corpus bucket's seams and at every slice count, both pack kernels
+against their plain layouts, and the log-mel kernel at both compute types
+from the shortest input to batch 8 x 10 s (with the same bits over three
+launches, and the silent floor at bf16).
 
 A CUDA kernel has no CPU mode, so these tests skip without an sm_90
 device. This file imports neither JAX nor conette_tpu, so it also runs
@@ -34,8 +36,15 @@ from conette_torch.kernels.downsample import (
     seam_plan,
     slice_counts,
 )
-from conette_torch.kernels.logmel import fused_logmel, logmel_reference
+from conette_torch.kernels.logmel import (
+    _identity_affine,
+    _operands,
+    fused_logmel,
+    launch_logmel,
+    logmel_reference,
+)
 from conette_torch.models.convnext import convnext_apply
+from conette_torch.ops.frontend import DEFAULT_LOGMEL, LogMelConfig
 
 EPS = 1e-6
 # (T, F, C) of each stage's blocks and seam input for a 10 s clip
@@ -175,10 +184,21 @@ def _waveform(rng, b, s, h100):
 # bf16: kernel and plain version round at the same points and differ by f32
 # summation order, which can flip one bf16 rounding of a power bin, about
 # 0.017 dB on the mel bins that hold it; 0.05 dB (times the affine scale).
-@pytest.mark.parametrize("shape", [(2, 320_000), (2, 22_400)])
+# Shapes: batch 2 and 8 at 10 s, the 1 s corpus bucket, 3 tiles a clip (an
+# odd count), 1 tile, the shortest input (S = 513, reflected at both ends),
+# and a cfg with fmax 16 kHz (8 chunks).
+LOGMEL_CASES = [((2, 320_000), DEFAULT_LOGMEL), ((2, 22_400), DEFAULT_LOGMEL),
+                ((8, 320_000), DEFAULT_LOGMEL), ((8, 32_000), DEFAULT_LOGMEL),
+                ((2, 50_000), DEFAULT_LOGMEL), ((3, 12_800), DEFAULT_LOGMEL),
+                ((2, 513), DEFAULT_LOGMEL), ((2, 22_400), LogMelConfig(fmax=16_000.0))]
+
+
+@pytest.mark.parametrize("shape,cfg", LOGMEL_CASES,
+                         ids=["2x10s", "2x22400", "8x10s", "8x1s", "3tiles", "1tile", "shortest",
+                              "fmax16k"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("affine", [False, True])
-def test_logmel_kernel_matches_plain_on_card(h100, shape, dtype, affine):
+def test_logmel_kernel_matches_plain_on_card(h100, shape, cfg, dtype, affine):
     rng = np.random.default_rng(shape[1])
     x = _waveform(rng, *shape, h100)
     scale = shift = None
@@ -186,19 +206,61 @@ def test_logmel_kernel_matches_plain_on_card(h100, shape, dtype, affine):
         scale = _randn(rng, (224,), 0.3, h100, shift=1.0)
         shift = _randn(rng, (224,), 1.0, h100)
     n = fused_logmel.launches
-    got = fused_logmel(x, bn_scale=scale, bn_shift=shift, compute_dtype=dtype)
+    got = fused_logmel(x, cfg, bn_scale=scale, bn_shift=shift, compute_dtype=dtype)
     torch.cuda.synchronize()
     assert fused_logmel.launches == n + 1
-    want = logmel_reference(x, bn_scale=scale, bn_shift=shift, compute_dtype=dtype)
+    want = logmel_reference(x, cfg, bn_scale=scale, bn_shift=shift, compute_dtype=dtype)
     assert got.shape == want.shape == (shape[0], 1 + shape[1] // 320, 224)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-4)
     else:
         gain = 1.0 if scale is None else float(scale.abs().max())
         assert float((got - want).abs().max()) <= 0.05 * gain
-    if not affine:  # the silent frames of the last clip sit on the -100 dB floor
+    if not affine and shape[1] >= 16_000:  # the last clip's silent frames sit on the -100 dB floor
         floor = torch.full_like(got[-1, -5:], -100.0)
         torch.testing.assert_close(got[-1, -5:], floor, atol=1e-4, rtol=0)
+
+
+def test_logmel_kernel_gives_the_same_bits_twice(h100):
+    """Every sum has a fixed order: two launches through the wrapper, and
+    one on the cached operands, give the same bits."""
+    rng = np.random.default_rng(8)
+    x = _waveform(rng, 8, 320_000, h100)
+    scale = _randn(rng, (224,), 0.3, h100, shift=1.0)
+    shift = _randn(rng, (224,), 1.0, h100)
+    first = fused_logmel(x, bn_scale=scale, bn_shift=shift, compute_dtype=torch.bfloat16)
+    again = fused_logmel(x, bn_scale=scale, bn_shift=shift, compute_dtype=torch.bfloat16)
+    ops = _operands(DEFAULT_LOGMEL, h100, torch.bfloat16)
+    third = launch_logmel(x, ops, scale, shift)
+    torch.cuda.synchronize()
+    for other in (again, third):
+        assert torch.equal(first.view(torch.int32), other.view(torch.int32))
+
+
+def test_logmel_silent_tail_sits_on_the_floor_at_bf16(h100):
+    """Without the affine, frames that lie wholly in silence sit on the
+    -100 dB floor at bf16, as they do at f32: a zero span gives zero power
+    in every live frequency."""
+    rng = np.random.default_rng(11)
+    x = _waveform(rng, 8, 320_000, h100)
+    x[:, -64_000:] = 0.0  # the last 2 s of every clip
+    for dtype in (torch.bfloat16, torch.float32):
+        got = fused_logmel(x, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        silent = got[:, -190:]  # frames whose 1024 samples are all in the silence
+        torch.testing.assert_close(silent, torch.full_like(silent, -100.0), atol=1e-4, rtol=0)
+        assert float(got[:, :-210].min()) > -100.0
+
+
+def test_logmel_operands_are_packed_once(h100):
+    """The packed operands are cached per (cfg, device, dtype): a call
+    uploads and packs nothing."""
+    dev = torch.zeros(1, device=h100).device  # with its index, as the wrapper keys it
+    ops = _operands(DEFAULT_LOGMEL, dev, torch.bfloat16)
+    assert ops is _operands(DEFAULT_LOGMEL, dev, torch.bfloat16)
+    assert ops.basis.device == ops.fb.device == ops.bands.device == dev
+    assert ops.n_chunks == 7 and ops.live == (2, 447)
+    assert _identity_affine(dev) is _identity_affine(dev)
 
 
 def test_bf16_card_route_keeps_the_frontend_kernel(h100):

@@ -141,3 +141,47 @@ def test_random_init_model_runs_on_cpu():
     assert float(w.abs().max()) <= 0.04 and float(w.std()) > 0.01  # trunc_normal(0.02)
     out = model([np.zeros(16000, np.float32)], task="clotho")
     assert out["preds"].shape == (1, 5) and isinstance(out["cands"][0], str)
+
+
+@pytest.fixture(scope="module")
+def port_saved(tmp_path_factory):
+    """A narrow random-init port model (beam 3) saved by save_pretrained."""
+    tok = AACTokenizer()
+    tok.fit(CORPUS)
+    cfg = CoNeTTEConfig(d_model=32, nhead=2, num_decoder_layers=2, dim_feedforward=64,
+                        beam_size=3, max_pred_size=5, tokenizer_state=tok.get_txt_state())
+    enc = convnext_init(torch.Generator().manual_seed(0), depths=(1, 1, 1, 1),
+                        dims=(16, 32, 64, 768))
+    path = tmp_path_factory.mktemp("port_ckpt")
+    CoNeTTEModel(cfg, encoder_params=enc, seed=3, device="cpu").save_pretrained(str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("kwargs", [dict(token=None), dict(offline=True), dict(token="hf_x", offline=False)])
+def test_from_pretrained_takes_the_hub_options_as_jax_does(port_saved, tmp_path, kwargs):
+    """``token`` and ``offline`` (the reference's Hub options) change nothing
+    for a local directory; a path that is not a directory still raises."""
+    clip = [np.sin(np.arange(16000, dtype=np.float32) / 9.0) * 0.1]
+    plain = CoNeTTEModel.from_pretrained(port_saved, device="cpu")
+    model = CoNeTTEModel.from_pretrained(port_saved, device="cpu", **kwargs)
+    assert model(clip, task="clotho")["cands"] == plain(clip, task="clotho")["cands"]
+    jax_model = JaxModel.from_pretrained(port_saved, **kwargs)  # the same call loads in JAX
+    assert jax_model.config.beam_size == model.config.beam_size == 3
+    with pytest.raises(FileNotFoundError):
+        CoNeTTEModel.from_pretrained(str(tmp_path / "missing"), device="cpu", **kwargs)
+
+
+def test_conette_config_kwds_override_the_saved_config(port_saved):
+    """``conette(path, config_kwds=...)`` loads with the overridden config.
+    This is the one place where the port differs from ``conette_tpu.conette``
+    on purpose: the reference passes the config to ``CoNeTTEModel`` twice
+    and raises ``TypeError`` on the same call."""
+    import conette_tpu
+
+    model = conette_torch.conette(port_saved, config_kwds={"beam_size": 2}, device="cpu")
+    assert model.config.beam_size == 2
+    assert conette_torch.conette(port_saved, device="cpu").config.beam_size == 3
+    given = CoNeTTEConfig.from_pretrained(port_saved, beam_size=1)
+    assert CoNeTTEModel.from_pretrained(port_saved, device="cpu", config=given).config.beam_size == 1
+    with pytest.raises(TypeError, match="multiple values for argument 'config'"):
+        conette_tpu.conette(port_saved, config_kwds={"beam_size": 2})
