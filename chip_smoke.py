@@ -9,36 +9,55 @@ Phases (any failure exits non-zero):
    build the CUDA kernels from ``conette_torch/csrc`` into ``build/``;
 2. hold each kernel against its plain PyTorch version at every main-path
    shape (batch 8; block and seam in bf16 with layer scale N(0, 0.1), max
-   relative error < 0.02; the block also at two ragged shapes, stage 4 of
-   a 1 s clip at batch 8 and stage 1 at batch 1, the seam also at the 1 s
-   corpus bucket's three seams (odd T, ragged tiles); log-mel on 8 x 10 s
-   of waveform at f32 and bf16 compute, with and without the bn0 affine,
-   and on the 1 s corpus bucket at bf16 with it, within the tolerances at
-   ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``, its silent tail on the
-   -100 dB floor; every kernel bit-equal over two launches and over the 28
-   launches of its timed wrapper calls), and time them with CUDA
-   events (median of 25 runs after a warm-up): the block and the seam both
-   through their wrappers (``ms``) and as the launch alone on operands
-   prepared outside the timed region (``launch_ms``), and at other splits
-   of the block's hidden layer or slices of the seam's columns where their
-   tiles do not fill the card; the seam beside ``F.layer_norm`` +
-   ``F.conv2d`` (``library_ms``, two calls); the log-mel kernel also
-   against the unfused bf16 frontend it replaces;
+   relative error < 0.02; the block also at the 1 s corpus bucket's four
+   stages and at stage 1 at batch 1, the seam also at the 1 s bucket's
+   three seams (odd T, ragged tiles) and at (2, 126, 28, 192); log-mel on
+   8 x 10 s of waveform at f32 and bf16 compute, with and without the bn0
+   affine, and on the 1 s corpus bucket at bf16 with it, within the
+   tolerances at ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``, its silent
+   tail on the -100 dB floor; every kernel bit-equal over two launches,
+   over the 28 launches of its timed wrapper calls and on memory that the
+   caching allocator hands over poisoned with 0xFF bytes against zeroed
+   memory), and time them with CUDA events (median of 25 runs after a
+   warm-up): the block and the seam both through their wrappers (``ms``)
+   and as the launch alone on operands prepared outside the timed region
+   (``launch_ms``), and at other splits of the block's hidden layer or
+   slices of the seam's columns where their tiles do not fill the card;
+   the seam beside ``F.layer_norm`` + ``F.conv2d`` (``library_ms``, two
+   calls); the log-mel kernel also against the unfused bf16 frontend it
+   replaces;
 3. build a full-width CoNeTTE (ConvNeXt-Tiny, 6-layer 256-wide decoder,
    8 heads, ff 2048, beam 3, 3..20 tokens) from a seed, with a tokenizer
    fitted on ~4000 generated words, ``save_pretrained`` it, load it back
    with ``conette_torch.conette(path, compute_dtype=torch.bfloat16)`` and
-   answer 3 requests of 8 clips of 10 s at 44.1 kHz; each request must run
-   1 log-mel, 18 block and 3 seam kernel launches; the kernel encoder is
-   held against the plain bf16 encoder on one request, and the f32 path on
-   the card against the f32 path on the CPU on two short clips;
+   answer 3 requests of 8 clips of 10 s at 44.1 kHz: the first captures
+   the encoder graph and the decode graph (each kernel launched for the
+   warm-up and once in the capture), the others replay them; a replayed
+   request's profile must show 1 log-mel, 18 block and 3 seam kernels;
+   the replays of the decode graph at beam 3 and greedy, under
+   ``torch.cuda.set_sync_debug_mode("error")``, are held against eager
+   calls of ``encode_audio`` and ``forward_generate`` / ``forward_greedy``
+   on the same encoder output (equal tokens, lprobs within 1e-5); the
+   kernel encoder is held against the plain bf16 encoder on one request,
+   and the f32 path on the card against the f32 path on the CPU on two
+   short clips; a request of 3 clips must replay the same programs (padded
+   to their 8 rows) and capture nothing; stage times, capture times, graph
+   memory and the device's busy share of a replayed request;
 4. serve a corpus of 32 WAV and FLAC files (0.8..9.5 s at 44.1 and 32 kHz,
    4 length buckets of 8, so no batch holds silence rows) with
-   ``conette_torch.serving``: ``warmup`` for the buckets, then
-   ``caption_corpus(..., batch_size=8)`` with a task per clip, 3 times,
-   with the host's file decode timed inside each call; results in input
-   order with their tasks, and every batch runs 1 + 18 + 3 kernel launches;
-5. print a details JSON line, the card line, the ``kernels`` JSON line
+   ``conette_torch.serving``: ``warmup`` for the buckets (which captures
+   their programs), then ``caption_corpus(..., batch_size=8)`` with a task
+   per clip, 3 times, with the host's file decode timed inside each call,
+   and once more under the profiler, where every batch must run 1 + 18 +
+   3 kernels; results in input order with their tasks;
+5. export the model at batch 8 x 10 s with ``conette_torch.export``, save
+   it, load it and replay it: its log-mel node must compute in bf16, its
+   tokens must equal the live graph path's on the same padded batch, its
+   clip probabilities and lprobs must agree with them within 1e-6 and
+   1e-5, and its profile must show 1 + 18 + 3 custom-op calls and 18 + 3
+   block and seam kernels (its log-mel kernel rows are printed: the trace
+   loses them at random late in the run);
+6. print a details JSON line, the card line, the ``kernels`` JSON line
    and, last, the device JSON line.
 """
 
@@ -61,10 +80,13 @@ SEAMS = [(252, 56, 96), (126, 28, 192), (63, 14, 384)]
 # the seam inputs of the 1 s corpus bucket at batch 8 (101 frames, 27 rows
 # after the stem): odd T at the first two seams, a ragged last tile at all
 RAGGED_SEAMS = [(27, 56, 96), (13, 28, 192), (6, 14, 384)]
-# block shapes off the 10 s path, checked but not counted a request: stage 4
-# of the 1 s corpus bucket at batch 8 (168 pixels, a ragged last tile) and
-# stage 1 at batch 1; (B, T, F, C, blocks)
-RAGGED_BLOCKS = [(8, 3, 7, 768, 0), (1, 252, 56, 96, 0)]
+# block shapes off the 10 s path, checked but not counted a request: the 1 s
+# corpus bucket's four stages at batch 8 (stage 4: 168 pixels, a ragged
+# last tile, split 44 ways) and stage 1 at batch 1; (B, T, F, C, blocks)
+RAGGED_BLOCKS = [(8, 27, 56, 96, 0), (8, 13, 28, 192, 0), (8, 6, 14, 384, 0),
+                 (8, 3, 7, 768, 0), (1, 252, 56, 96, 0)]
+# seam shapes of the card tests, checked here too: (B, T, F, C)
+CARD_SEAMS = [(2, 126, 28, 192)]
 SPLITS_TRIED = (1, 2, 3, 4, 5, 6, 8)  # hidden-layer splits timed where tiles < SMs
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
@@ -125,6 +147,35 @@ def timed_same_bits(fn, first) -> tuple[float, bool]:
     return ms, all(seen)
 
 
+def recycle(byte: int) -> None:
+    """Fill a large and many small cached blocks of the caching allocator
+    with ``byte`` and free them, so that the next call's allocations get
+    that memory (0xFF is NaN in bf16 and f32)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks = [torch.empty(1 << 30, dtype=torch.uint8, device="cuda")]
+    blocks += [torch.empty(1 << 20, dtype=torch.uint8, device="cuda") for _ in range(64)]
+    for blk in blocks:
+        blk.fill_(byte)
+    del blocks
+    torch.cuda.synchronize()
+
+
+def same_bits_poisoned(fn, first) -> bool:
+    """Whether ``fn`` gives ``first``'s bits on zeroed and on 0xFF-poisoned
+    recycled memory, twice each."""
+    import torch
+
+    outs = []
+    for byte in (0x00, 0xFF, 0x00, 0xFF):
+        recycle(byte)
+        outs.append(fn().clone())
+    torch.cuda.synchronize()
+    return all(same_bits(first, o) for o in outs)
+
+
 def errors(want, got) -> tuple[float, float]:
     diff = (want.float() - got.float()).abs().max().item()
     return diff, diff / max(want.float().abs().max().item(), 1e-6)
@@ -165,6 +216,7 @@ def check_kernels(dev) -> list[dict]:
         torch.cuda.synchronize()
         abs_err, rel_err = errors(want, got)
         twice = same_bits(got, again)
+        poisoned = same_bits_poisoned(lambda: fused_convnext_block(x, *args), got)
         ms, repeated = timed_same_bits(lambda: fused_convnext_block(x, *args), got)
         p = b * t * f
         flops = 2 * p * c * 2 * h + 98 * p * c
@@ -175,8 +227,9 @@ def check_kernels(dev) -> list[dict]:
         plan = block_plan(p, c, sm_count(dev))
         rec = dict(
             kernel="convnext_block", shape=[b, t, f, c], per_request=depth, splits=plan.splits,
-            max_abs_err=abs_err, max_rel_err=rel_err, ok=rel_err < TOL and twice and repeated,
-            same_bits_twice=twice, same_bits_repeated=repeated, ms=ms,
+            max_abs_err=abs_err, max_rel_err=rel_err,
+            ok=rel_err < TOL and twice and repeated and poisoned,
+            same_bits_twice=twice, same_bits_repeated=repeated, same_bits_poisoned=poisoned, ms=ms,
             launch_ms=time_ms(lambda: launch_block(x, ops, plan)),
             plain_ms=time_ms(lambda: convnext_block_reference(x, *args)),
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
@@ -209,13 +262,15 @@ def check_kernels(dev) -> list[dict]:
               + (f", bound over all columns {r['bound_ms_all_columns']:.4f} ms"
                  if "bound_ms_all_columns" in r else "")
               + (f", L2 basis {r['l2_basis_mb']:.1f} MB" if "l2_basis_mb" in r else "")
-              + f", same bits twice {r['same_bits_twice']}, repeated {r['same_bits_repeated']}",
+              + f", same bits twice {r['same_bits_twice']}, repeated {r['same_bits_repeated']}"
+              f", poisoned {r['same_bits_poisoned']}",
               flush=True)
         if not r["ok"]:
             raise AssertionError(
                 f"{r['kernel']} at {r['shape']}{r.get('variant', '')} fails its check: error "
                 f"{r['max_abs_err']:.3e} abs, {r['max_rel_err']:.3e} rel, same bits twice "
-                f"{r['same_bits_twice']}, repeated {r['same_bits_repeated']}")
+                f"{r['same_bits_twice']}, repeated {r['same_bits_repeated']}, poisoned "
+                f"{r['same_bits_poisoned']}")
     return records
 
 
@@ -248,43 +303,46 @@ def check_seams(dev, gen) -> list[dict]:
     )
 
     records = []
-    for (t, f, c), per_request in [(s, 1) for s in SEAMS] + [(s, 0) for s in RAGGED_SEAMS]:
+    rows = ([(BATCH, *s, 1) for s in SEAMS] + [(BATCH, *s, 0) for s in RAGGED_SEAMS]
+            + [(*s, 0) for s in CARD_SEAMS])
+    for b, t, f, c, per_request in rows:
         args = (
             randn(gen, (c,), 0.1, dev, shift=1.0), randn(gen, (c,), 0.05, dev),
             randn(gen, (2, 2, c, 2 * c), 0.05, dev), randn(gen, (2 * c,), 0.05, dev),
         )
-        x = randn(gen, (BATCH, t, f, c), 0.5, dev, torch.bfloat16)
+        x = randn(gen, (b, t, f, c), 0.5, dev, torch.bfloat16)
         got = fused_downsample(x, *args)
         again = fused_downsample(x, *args)
         want = downsample_reference(x, *args)
         torch.cuda.synchronize()
         abs_err, rel_err = errors(want, got)
         twice = same_bits(got, again)
+        poisoned = same_bits_poisoned(lambda: fused_downsample(x, *args), got)
         ms, repeated = timed_same_bits(lambda: fused_downsample(x, *args), got)
         p_out = (t // 2) * (f // 2)
-        flops = BATCH * 2 * p_out * 4 * c * 2 * c
-        nbytes = BATCH * ((t - t % 2) * f * c + p_out * 2 * c) * 2 + 4 * c * 2 * c * 2 + 4 * 4 * c
+        flops = b * 2 * p_out * 4 * c * 2 * c
+        nbytes = b * ((t - t % 2) * f * c + p_out * 2 * c) * 2 + 4 * c * 2 * c * 2 + 4 * 4 * c
         bms, by = bound_ms(flops, nbytes)
         ops = prepare_seam_operands(*args)
-        plan = seam_plan(BATCH * p_out, c, sm_count(dev))
+        plan = seam_plan(b * p_out, c, sm_count(dev))
         # the yardstick's operands, prepared outside its timed region
         lib = (args[0].to(torch.bfloat16), args[1].to(torch.bfloat16),
                args[2].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
                    memory_format=torch.channels_last), args[3].to(torch.bfloat16))
         lib_err = errors(want, library_seam(x, *lib))[1]
         rec = dict(
-            kernel="downsample", shape=[BATCH, t, f, c], per_request=per_request,
+            kernel="downsample", shape=[b, t, f, c], per_request=per_request,
             slices=plan.slices, max_abs_err=abs_err, max_rel_err=rel_err,
-            ok=rel_err < TOL and twice and repeated, same_bits_twice=twice,
-            same_bits_repeated=repeated, ms=ms,
+            ok=rel_err < TOL and twice and repeated and poisoned, same_bits_twice=twice,
+            same_bits_repeated=repeated, same_bits_poisoned=poisoned, ms=ms,
             launch_ms=time_ms(lambda: launch_seam(x, ops, plan)),
             plain_ms=time_ms(lambda: downsample_reference(x, *args)),
             library_ms=time_ms(lambda: library_seam(x, *lib)), library_rel_err=lib_err,
             bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
         )
-        if plan.tiles < sm_count(dev):  # the launch at the other slice counts
+        if plan.tiles < sm_count(dev) and b == BATCH:  # the launch at the other slice counts
             rec["launch_ms_by_slices"] = {
-                s: time_ms(lambda: launch_seam(x, ops, seam_plan(BATCH * p_out, c, sm_count(dev), s)))
+                s: time_ms(lambda: launch_seam(x, ops, seam_plan(b * p_out, c, sm_count(dev), s)))
                 for s in slice_counts(c)
             }
         records.append(rec)
@@ -359,6 +417,7 @@ def check_logmel(dev, gen) -> list[dict]:
         torch.cuda.synchronize()
         abs_err, rel_err = errors(want, got)
         twice = same_bits(got, again)
+        poisoned = same_bits_poisoned(lambda: fused_logmel(xs, compute_dtype=dtype, **kw), got)
         ms, repeated = timed_same_bits(lambda: fused_logmel(xs, compute_dtype=dtype, **kw), got)
         if dtype == torch.float32:
             ok = bool(torch.allclose(got, want, **LOGMEL_F32_TOL))
@@ -381,8 +440,8 @@ def check_logmel(dev, gen) -> list[dict]:
         rec = dict(
             kernel="logmel", shape=[BATCH, samples], variant=f" {name}{' +bn0' if affine else ''}",
             per_request=int(samples == n and dtype == torch.bfloat16 and affine),
-            max_abs_err=abs_err, max_rel_err=rel_err, ok=ok and twice and repeated,
-            same_bits_twice=twice, same_bits_repeated=repeated, ms=ms,
+            max_abs_err=abs_err, max_rel_err=rel_err, ok=ok and twice and repeated and poisoned,
+            same_bits_twice=twice, same_bits_repeated=repeated, same_bits_poisoned=poisoned, ms=ms,
             launch_ms=time_ms(lambda: launch_logmel(xs, ops, sc, sh)),
             plain_ms=time_ms(lambda: logmel_reference(xs, compute_dtype=dtype, **kw)),
             bound_ms=bms, bound_by=by, bound_ms_all_columns=bms_all, flops=flops, bytes=nbytes,
@@ -452,18 +511,95 @@ def plain_encoder(params, wav, compute_dtype):
     return frames.transpose(1, 2), clip
 
 
-def main_path(dev, work_dir: str):
-    """Phase 3: build, save, load and serve a full-width model; returns the
-    summary and the loaded bf16 model."""
-    import torch
-
-    import conette_torch
-    from conette_torch.huggingface.config import CoNeTTEConfig
-    from conette_torch.huggingface.model import CoNeTTEModel
+def count_launches() -> dict:
+    """The three wrappers' launch counts."""
     from conette_torch.kernels.convnext_block import fused_convnext_block
     from conette_torch.kernels.downsample import fused_downsample
     from conette_torch.kernels.logmel import fused_logmel
-    from conette_torch.models.convnext import convnext_apply, convnext_init
+
+    return {"logmel": fused_logmel.launches, "convnext_block": fused_convnext_block.launches,
+            "downsample": fused_downsample.launches}
+
+
+def reset_launches() -> None:
+    from conette_torch.kernels.convnext_block import fused_convnext_block
+    from conette_torch.kernels.downsample import fused_downsample
+    from conette_torch.kernels.logmel import fused_logmel
+
+    fused_logmel.launches = fused_convnext_block.launches = fused_downsample.launches = 0
+
+
+# a kernel call's one launch of each kernel's main CUDA function, by name in
+# a profile (the block's and seam's pack, phase-A and reduction launches are
+# part of the same call)
+CALL_MARKERS = {"logmel": "logmel_bf16_kernel", "convnext_block": "convnext_block_kernel<",
+                "downsample": "seam_kernel<"}
+OUR_KERNELS = {"logmel": ("logmel_bf16_kernel",),
+               "convnext_block": ("block_pack_kernel", "block_dwln_kernel",
+                                  "convnext_block_kernel", "block_reduce_kernel"),
+               "downsample": ("seam_pack_kernel", "seam_kernel")}
+
+
+def profiled(run) -> dict:
+    """``run()`` under ``torch.profiler``: its wall time, the kernels' summed
+    device time (one stream, so the busy time; the profiler's own cost
+    lengthens the wall time, so the share is a lower bound), the five
+    kernels that take the most, the device time of the port's kernels and
+    the number of calls of each (``CALL_MARKERS``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    # a trace that starts with the run can miss its first kernels: a warm-up
+    # step of one small kernel, then the run as the step that is kept
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    events = prof.key_averages()
+    # kernel rows only: CPU op rows carry their kernels' time as well
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+    device = sum(ms for _, ms, _ in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:5]
+    return {
+        "wall_ms": wall, "device_ms": device, "busy_share": device / wall,
+        "top": [[k[:60], round(ms, 3)] for k, ms, _ in top],
+        "ours_ms": {name: sum(ms for k, ms, _ in rows if any(n in k for n in names))
+                    for name, names in OUR_KERNELS.items()},
+        "calls": {name: sum(n for k, _, n in rows if marker in k)
+                  for name, marker in CALL_MARKERS.items()},
+        # every kernel row of either log-mel kernel (bf16 or f32)
+        "logmel_rows": [[k, n, round(ms, 4)] for k, ms, n in rows if "logmel" in k],
+        # the custom ops' calls, as the dispatcher records them (none in a
+        # graph replay, which bypasses it)
+        "op_calls": {name: sum(e.count for e in events if e.key == f"conette_torch::{name}")
+                     for name in CALL_MARKERS},
+    }
+
+
+def bos_ids(model, tasks: list[str]) -> np.ndarray:
+    """The (B,) BOS ids of ``tasks``, as ``CoNeTTEModel.forward`` maps them."""
+    from conette_torch.models.conette import tasks_to_bos_ids
+
+    datasets = [t.split("_")[0] for t in tasks]
+    sources = ["_".join(t.split("_")[1:]) or None for t in tasks]
+    return tasks_to_bos_ids(model.model_cfg, model.task_token_ids, datasets, sources)
+
+
+def build_model(work_dir: str) -> str:
+    """A full-width checkpoint from seeds, saved under ``work_dir``."""
+    import torch
+
+    from conette_torch.huggingface.config import CoNeTTEConfig
+    from conette_torch.huggingface.model import CoNeTTEModel
+    from conette_torch.models.convnext import convnext_init
 
     tok = fit_tokenizer()
     gen = torch.Generator().manual_seed(1)
@@ -472,41 +608,95 @@ def main_path(dev, work_dir: str):
         for block in stage:  # non-trivial layer scales so the MLPs show
             block["scale"] = torch.randn(block["scale"].shape, generator=gen) * 0.1
     config = CoNeTTEConfig(beam_size=3, min_pred_size=3, max_pred_size=20)
-    built = CoNeTTEModel(config, encoder_params=encoder, tokenizer=tok, seed=2, device=dev)
+    built = CoNeTTEModel(config, encoder_params=encoder, tokenizer=tok, seed=2, device="cpu")
     ckpt = os.path.join(work_dir, "ckpt")
     built.save_pretrained(ckpt)
-    del built
+    return ckpt
+
+
+def main_path(dev, work_dir: str):
+    """Phase 3: load and serve a full-width model through its captured
+    programs; returns the summary and the loaded bf16 model."""
+    import torch
+
+    import conette_torch
+    from conette_torch.models.convnext import convnext_apply
+
+    ckpt = build_model(work_dir)
     model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
     vocab = model.model_cfg.vocab_size
     print(f"  model: vocab {vocab}, device {model.device}", flush=True)
 
     rng = np.random.default_rng(3)
     tasks = ["clotho", "audiocaps", "macs", "wavcaps_freesound"] * 2
-    fused_logmel.launches = 0
-    fused_convnext_block.launches = 0
-    fused_downsample.launches = 0
-    latencies, outputs = [], []
+    reset_launches()
+    latencies, outputs, per_request = [], [], []
     for r in range(3):
         clips = make_clips(rng, BATCH, 10.0, 44100)
-        m0, b0, s0 = fused_logmel.launches, fused_convnext_block.launches, fused_downsample.launches
+        before = count_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model(clips, sr=44100, task=tasks)
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
-        mels = fused_logmel.launches - m0
-        blocks = fused_convnext_block.launches - b0
-        seams = fused_downsample.launches - s0
-        assert (mels, blocks, seams) == (1, 18, 3), (mels, blocks, seams)
+        per_request.append({k: v - before[k] for k, v in count_launches().items()})
         assert len(out["cands"]) == BATCH and all(isinstance(c, str) for c in out["cands"])
         assert len(out["tags"]) == BATCH and out["tags_probs"].shape == (BATCH, 527)
         assert np.isfinite(out["lprobs"]).all() and np.isfinite(out["tags_probs"]).all()
         outputs.append(out)
         print(f"  request {r}: {latencies[-1] * 1e3:.1f} ms, {BATCH / latencies[-1]:.2f} clips/s, "
-              f"{mels} log-mel + {blocks} block + {seams} seam launches; "
-              f"cand 0: {out['cands'][0]!r}", flush=True)
-    launches = {"logmel": fused_logmel.launches, "convnext_block": fused_convnext_block.launches,
-                "downsample": fused_downsample.launches}
+              f"wrapper launches {per_request[-1]}; cand 0: {out['cands'][0]!r}", flush=True)
+    launches = count_launches()
+    # the first request runs each kernel for the encoder graph's warm-up and
+    # once in its capture; the others replay the graphs, where no wrapper runs
+    assert per_request[0] == {"logmel": 2, "convnext_block": 36, "downsample": 6}, per_request
+    assert per_request[1] == per_request[2] == {k: 0 for k in launches}, per_request
+
+    # a replayed request: 1 log-mel, 18 block and 3 seam kernel calls
+    replay = profiled(lambda: model(make_clips(rng, BATCH, 10.0, 44100), sr=44100, task=tasks))
+    print(f"  replayed request under the profiler: {replay['wall_ms']:.1f} ms wall, "
+          f"{replay['device_ms']:.1f} ms of kernels (busy share {replay['busy_share']:.3f}); "
+          f"kernel calls {replay['calls']}; top: {replay['top']}; the port's kernels (ms): "
+          f"{replay['ours_ms']}", flush=True)
+    assert replay["calls"] == {"logmel": 1, "convnext_block": 18, "downsample": 3}, replay["calls"]
+    # the profiler lengthens the wall time; against the median warm request
+    # unprofiled (busy_share above is the profiled request's own)
+    replay["busy_share_of_warm_request"] = (replay["device_ms"]
+                                            / (statistics.median(latencies[1:]) * 1e3))
+    print(f"  its {replay['device_ms']:.1f} ms of kernels against the median warm request: busy "
+          f"share {replay['busy_share_of_warm_request']:.3f}", flush=True)
+
+    # fewer clips than the programs' rows: padded, replayed, nothing captured
+    # and its stages: host load + resample, encoder, projection + search
+    keys = (list(model.preprocessor.graphs.programs), list(model.graphs.programs))
+    small_ms, small_stages = [], []
+    for n in (3, 3, 8):
+        clips = make_clips(rng, n, 10.0, 44100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        small = model(clips, sr=44100, task=tasks[:n])
+        torch.cuda.synchronize()
+        small_ms.append((time.perf_counter() - t0) * 1e3)
+        assert len(small["cands"]) == n and small["preds"].shape[0] == n, small["preds"].shape
+        t = [time.perf_counter()]
+        wav, lens = model.preprocessor.load_resample(clips, 44100)
+        t.append(time.perf_counter())
+        audio, a_lens, _ = model.preprocessor.encode(wav, lens)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        cfg = model.model_cfg
+        model._generate(audio, a_lens, bos_ids(model, tasks[:n]), model.forbid_rep_mask,
+                        cfg.beam_size, cfg.min_pred_size, cfg.max_pred_size)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        small_stages.append([round((b - a) * 1e3, 2) for a, b in zip(t, t[1:])])
+    assert (list(model.preprocessor.graphs.programs), list(model.graphs.programs)) == keys
+    assert count_launches() == launches, count_launches()
+    print(f"  requests of 3, 3 and 8 clips replayed the 8-row programs, no capture: "
+          f"{small_ms[0]:.1f}, {small_ms[1]:.1f}, {small_ms[2]:.1f} ms; their stages again "
+          f"(load + resample, encoder, decode; ms): {small_stages}", flush=True)
+
+    versus = graphs_vs_eager(model, make_clips(rng, BATCH, 10.0, 44100), tasks)
 
     # the kernel encoder against the plain bf16 encoder, one request's inputs
     with torch.inference_mode():
@@ -521,7 +711,7 @@ def main_path(dev, work_dir: str):
           f"clipwise abs {clip_err:.2e}", flush=True)
     assert fe_err < TOL and clip_err < TOL, (fe_err, clip_err)
 
-    # the f32 path on the card against the f32 path on the CPU
+    # the f32 path on the card (its own graphs) against the f32 path on the CPU
     short = make_clips(rng, 2, 1.5, 44100)
     card = conette_torch.conette(ckpt)(short, sr=44100)
     cpu = conette_torch.conette(ckpt, device="cpu")(short, sr=44100)
@@ -532,22 +722,90 @@ def main_path(dev, work_dir: str):
     assert tag_err < 1e-4
     np.testing.assert_allclose(card["lprobs"], cpu["lprobs"], atol=1e-3)
 
-    stages = breakdown(model, make_clips(rng, BATCH, 10.0, 44100))
+    stages = breakdown(model, make_clips(rng, BATCH, 10.0, 44100), tasks)
     print("  one request's stages (median of 4, ms): "
-          + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()), flush=True)
-    profiled = device_busy(model, make_clips(rng, BATCH, 10.0, 44100), tasks)
-    print(f"  profiled request: {profiled['wall_ms']:.1f} ms wall, "
-          f"{profiled['device_ms']:.1f} ms of kernels (busy share {profiled['busy_share']:.3f}); "
-          f"top: {profiled['top']}; the port's kernels (ms): {profiled['ours_ms']}", flush=True)
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    graphs = graph_records(model)
+    print(f"  graphs: {graphs}", flush=True)
 
     total = sum(latencies)
     return dict(
         latency_ms=[x * 1e3 for x in latencies], clips_per_s=3 * BATCH / total, stages_ms=stages,
-        profiled_request=profiled,
-        launches=launches, encoder_frame_embs_rel_err=fe_err, encoder_clip_abs_err=clip_err,
-        f32_card_vs_cpu_tags_abs_err=tag_err, vocab=vocab,
+        small_requests_ms=small_ms, small_request_stages_ms=small_stages,
+        replayed_request=replay, graphs_vs_eager=versus, graphs=graphs,
+        launches=launches, launches_by_request=per_request, encoder_frame_embs_rel_err=fe_err,
+        encoder_clip_abs_err=clip_err, f32_card_vs_cpu_tags_abs_err=tag_err, vocab=vocab,
         cands=[o["cands"] for o in outputs],
     ), model
+
+
+def graph_records(model) -> dict:
+    """Each captured program's key, capture time and device memory (its
+    private pool and static inputs)."""
+    out = {}
+    for owner, cache in (("encoder", model.preprocessor.graphs), ("model", model.graphs)):
+        mem = cache.memory_bytes()
+        for key, seconds in cache.capture_s.items():
+            out[f"{owner}:{key}"] = {"capture_s": seconds, "memory_mb": mem.get(key, 0) / 1e6}
+    return out
+
+
+def graphs_vs_eager(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
+    """The encoder and decode graphs replayed under
+    ``set_sync_debug_mode("error")`` (a host sync raises), and the decode
+    replay at beam 3 and greedy against eager calls of ``encode_audio`` and
+    ``forward_generate`` / ``forward_greedy`` at f32 on the same encoder
+    output: equal tokens, lprobs within 1e-5."""
+    import torch
+
+    from conette_torch.models.conette import encode_audio, forward_generate, forward_greedy
+
+    cfg = model.model_cfg
+    dev = model.device
+    bos = torch.from_numpy(bos_ids(model, tasks)).to(dev)
+    forbid = model.forbid_rep_mask
+    wav, lens = model.preprocessor.load_resample(clips, 44100)
+    model.preprocessor(list(wav))  # the key of a 10 s request: captured by now
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = model.preprocessor(list(wav), x_shapes=np.stack([np.ones(BATCH), lens], 1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    audio, a_lens = batch["audio"].float(), batch["audio_shape"][:, -1]
+    out = {}
+    for name, beam in (("beam3", 3), ("greedy", 1)):
+        args = (audio, a_lens, bos, forbid, beam, cfg.min_pred_size, cfg.max_pred_size)
+        model._generate(*args)  # captured on first use
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            preds, lprobs, mult_preds, mult_lprobs = model._generate(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        with torch.inference_mode():
+            memory, pad = encode_audio(model.params, cfg, audio, a_lens)
+            if beam > 1:
+                res = forward_generate(model.params, cfg, memory, pad, bos, beam_size=beam,
+                                       forbid_rep_mask=forbid)
+                want = (res.best_preds, res.best_avg_lprobs, res.global_preds,
+                        res.global_avg_lprobs)
+            else:
+                g = forward_greedy(model.params, cfg, memory, pad, bos, forbid_rep_mask=forbid)
+                lp = torch.log_softmax(g.logits.transpose(1, 2), dim=-1)
+                sel = lp.gather(-1, g.preds[..., None])[..., 0]
+                valid = g.preds != cfg.pad_id
+                avg = torch.where(valid, sel, 0.0).sum(dim=1) / valid.sum(dim=1).clamp_min(1)
+                want = (g.preds, avg, g.preds[:, None, :], avg[:, None])
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(preds, want[0]) and torch.equal(mult_preds, want[2]))
+        err = max(float((lprobs - want[1]).abs().max()), float((mult_lprobs - want[3]).abs().max()))
+        out[name] = {"tokens_equal": equal, "lprobs_max_abs_diff": err,
+                     "lengths": (preds != cfg.pad_id).sum(dim=1).tolist()}
+        print(f"  {name}: graph replay (no host sync) vs eager at f32: tokens equal {equal}, "
+              f"lprobs max abs diff {err:.2e}", flush=True)
+        assert equal and err <= 1e-5, out[name]
+    return out
 
 
 # phase 4's corpus: 8 clips in each of the 1, 3, 5 and 10 s buckets, so
@@ -560,16 +818,15 @@ CORPUS_RUNS = 3
 
 
 def serve_corpus(model, work_dir: str) -> dict:
-    """Phase 4: write the corpus, warm the buckets up, caption it
-    ``CORPUS_RUNS`` times; the host's file decode and resample inside each
-    call (every ``load_resample``: the bucket pass for FLAC, then each
-    batch's loads) is timed apart from the call."""
+    """Phase 4: write the corpus, warm the buckets up (capturing their
+    programs), caption it ``CORPUS_RUNS`` times, then once more under the
+    profiler, which counts the kernel calls of the replayed batches; the
+    host's file decode and resample inside each call (every
+    ``load_resample``: the bucket pass for FLAC, then each batch's loads)
+    is timed apart from the call."""
     import torch
 
     from conette_torch.huggingface.preprocessor import bucket_length
-    from conette_torch.kernels.convnext_block import fused_convnext_block
-    from conette_torch.kernels.downsample import fused_downsample
-    from conette_torch.kernels.logmel import fused_logmel
     from conette_torch.serving import CaptionResult, caption_corpus, warmup
     from conette_torch.utils.audio_io import save_wav
     from conette_torch.utils.flac import save_flac
@@ -589,6 +846,7 @@ def serve_corpus(model, work_dir: str) -> dict:
     n_batches = sum(-(-count // BATCH) for count in buckets.values())
     assert len(buckets) >= 3 and all(count % BATCH == 0 for count in buckets.values()), buckets
 
+    reset_launches()
     t0 = time.perf_counter()
     warmup(model, bucket_seconds=sorted(b // 32000 for b in buckets), batch_size=BATCH)
     torch.cuda.synchronize()
@@ -609,16 +867,10 @@ def serve_corpus(model, work_dir: str) -> dict:
     try:
         for _ in range(CORPUS_RUNS):
             decode[0] = 0.0
-            fused_logmel.launches = fused_convnext_block.launches = fused_downsample.launches = 0
             t0 = time.perf_counter()
             results = caption_corpus(model, paths, task=tasks, batch_size=BATCH)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = {"logmel": fused_logmel.launches,
-                        "convnext_block": fused_convnext_block.launches,
-                        "downsample": fused_downsample.launches}
-            assert launches == {"logmel": n_batches, "convnext_block": 18 * n_batches,
-                                "downsample": 3 * n_batches}, (launches, n_batches)
             assert [r.fname for r in results] == paths
             assert [r.task for r in results] == tasks
             assert all(isinstance(r, CaptionResult) and isinstance(r.caption, str)
@@ -627,101 +879,225 @@ def serve_corpus(model, work_dir: str) -> dict:
                              host_decode_s=decode[0], rest_s=seconds - decode[0]))
     finally:
         del pre.load_resample
+    launches = count_launches()  # the warm-up's: every batch since replays its program
+    prof = profiled(lambda: caption_corpus(model, paths, task=tasks, batch_size=BATCH))
+    want = {"logmel": n_batches, "convnext_block": 18 * n_batches, "downsample": 3 * n_batches}
+    assert prof["calls"] == want, (prof["calls"], want)
+    assert all(v > 0 for v in launches.values()), launches
     median = statistics.median(r["clips_per_s"] for r in runs)
     print(f"  {len(paths)} files in {len(buckets)} buckets, {n_batches} full batches of {BATCH}: "
-          f"warmup {warmup_s:.2f} s; caption_corpus "
+          f"warmup {warmup_s:.2f} s (wrapper launches {launches}); caption_corpus "
           + ", ".join(f"{r['seconds']:.2f} s (host decode {r['host_decode_s']:.2f} s)" for r in runs)
-          + f", median {median:.2f} clips/s; {launches} a run; "
+          + f", median {median:.2f} clips/s; kernel calls of a profiled call {prof['calls']}; "
           f"first: {results[0].caption!r} ({results[0].task})", flush=True)
+    graphs = {k: v for k, v in graph_records(model).items() if "corpus" in k}
+    print(f"  corpus graphs: {graphs}", flush=True)
     return dict(files=len(paths), buckets=len(buckets), batches=n_batches, warmup_s=warmup_s,
-                runs=runs, clips_per_s_median=median, launches=launches,
+                graphs=graphs, runs=runs, clips_per_s_median=median, launches=launches,
+                replay_calls=prof["calls"], profiled_call_busy_share=prof["busy_share"],
                 captions=[[r.task, r.caption, r.lprob] for r in results])
 
 
-def breakdown(model, clips: list[np.ndarray]) -> dict:
-    """Host clock around each stage of one request, synchronised: host
-    load + resample, the bf16 encoder, projection + beam search; and, in
-    the same loop and in alternating order, the bf16 encoder with the
-    unfused frontend that the log-mel kernel replaces (composed here: the
-    plain frontend and bn0, then the same stem, kernel stages and heads)."""
+def export_phase(model, work_dir: str) -> dict:
+    """Phase 5: export the bf16 model at batch 8 x 10 s, save, load and
+    replay it. The loaded program's log-mel node must compute in bf16; its
+    tokens must equal the live graph path's on the same padded batch, its
+    clip probabilities and lprobs agree within 1e-6 and 1e-5 (the f32
+    encoder's clip probabilities are printed beside, as the gap a dtype
+    that drifted would show); its profile must count 1 + 18 + 3 custom-op
+    calls and wrapper launches, and 18 + 3 block and seam kernel calls.
+    The trace of an eager launch of the log-mel kernel late in this run
+    lacks its row in some profiles and not in others, and always in this
+    replay's (``PERF.md`` §7): its rows are printed, beside those of a
+    profile of the eager bf16 encoder on the same batch."""
     import torch
 
-    from conette_torch.models.conette import encode_audio, forward_generate
-    from conette_torch.models.convnext import convnext_apply, convnext_features, convnext_heads
-    from conette_torch.models.layers import batch_norm_inference
-    from conette_torch.ops.frontend import logmel_spectrogram
+    from conette_torch.export import ExportedCaptioner, save_exported
+    from conette_torch.models.convnext import convnext_apply
 
     dev = model.device
-    params = model.encoder_params
-    bos = torch.full((len(clips),), model.task_token_ids["clotho"], device=dev)
-    times: dict[str, list[float]] = {"host_load_resample": [], "encoder": [],
-                                     "encoder_unfused_frontend": [], "decoder": []}
+    art = os.path.join(work_dir, "export")
+    t0 = time.perf_counter()
+    save_exported(model, art, batch_size=BATCH, clip_seconds=10.0)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cap = ExportedCaptioner(art)
+    load_s = time.perf_counter() - t0
+    logmel_dtypes = [str(n.args[-1]) for n in cap.program.graph.nodes
+                     if "conette_torch.logmel" in str(n.target)]
+    tasks = ["clotho", "audiocaps", "macs", "wavcaps_freesound"] * 2
+    rng = np.random.default_rng(7)
+    wavs, _ = model.preprocessor.load_resample(make_clips(rng, BATCH, 10.0, 44100), 44100)
+    batch, lens, bos = cap.prepare_batch(list(wavs), task=tasks)
+    cap.run(batch, lens, bos)  # first use
+    torch.cuda.synchronize()
+    reset_launches()
+    out = []
+    prof = profiled(lambda: out.append(cap.run(batch, lens, bos)))
+    launches = count_launches()
+    wav_t, lens_t = torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev).long()
+    with torch.inference_mode():
+        eager = profiled(lambda: convnext_apply(model.encoder_params, wav_t, lens_t,
+                                                compute_dtype=torch.bfloat16))
+    preds, avg, _, _, clip = out[0]
+    live = model.preprocessor(list(batch), sr=32000, x_shapes=np.stack([np.ones(BATCH), lens], 1))
+    cfg = model.model_cfg
+    want = model._generate(live["audio"].float(), live["audio_shape"][:, -1], bos.astype(np.int64),
+                           model.forbid_rep_mask, cfg.beam_size, cfg.min_pred_size,
+                           cfg.max_pred_size)
+    with torch.inference_mode():
+        f32_clip = convnext_apply(model.encoder_params, wav_t, lens_t,
+                                  compute_dtype=torch.float32)["clipwise_output"]
+    equal = bool(torch.equal(preds, want[0]))
+    clip_err = float((clip - live["clip_probs"]).abs().max())
+    lprob_err = float((avg - want[1]).abs().max())
+    f32_gap = float((f32_clip - live["clip_probs"]).abs().max())
+    size_mb = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art)) / 1e6
+    print(f"  exported at batch {BATCH} x 10 s in {export_s:.1f} s ({size_mb:.1f} MB), loaded in "
+          f"{load_s:.1f} s; log-mel nodes at {logmel_dtypes}; replay {prof['wall_ms']:.1f} ms, "
+          f"custom-op calls {prof['op_calls']}, wrapper launches {launches}; tokens equal to the "
+          f"live graph path: {equal}, clip_probs max abs diff {clip_err:.2e} (the f32 encoder: "
+          f"{f32_gap:.2e}), avg lprobs {lprob_err:.2e}", flush=True)
+    for name, p in (("the replay", prof), ("the eager bf16 encoder", eager)):
+        print(f"  profile of {name}: kernel calls {p['calls']}, log-mel rows {p['logmel_rows']}",
+              flush=True)
+    assert logmel_dtypes == ["torch.bfloat16"], logmel_dtypes
+    assert equal, (preds, want[0])
+    assert clip_err <= 1e-6 and lprob_err <= 1e-5, (clip_err, lprob_err)
+    want_calls = {"logmel": 1, "convnext_block": 18, "downsample": 3}
+    assert prof["op_calls"] == launches == want_calls, (prof["op_calls"], launches)
+    # the log-mel call is held by its custom-op row, its wrapper launch and
+    # the bit-equal clip probabilities above: its kernel row may be missing
+    assert {k: prof["calls"][k] for k in ("convnext_block", "downsample")} == {
+        "convnext_block": 18, "downsample": 3}, prof["calls"]
+    return dict(export_s=export_s, load_s=load_s, size_mb=size_mb, replay_ms=prof["wall_ms"],
+                logmel_dtypes=logmel_dtypes, op_calls=prof["op_calls"], launches=launches,
+                kernel_calls=prof["calls"], logmel_rows=prof["logmel_rows"],
+                eager_encoder_calls=eager["calls"],
+                tokens_equal=equal, clip_probs_max_abs_diff=clip_err,
+                avg_lprobs_max_abs_diff=lprob_err, f32_encoder_clip_gap=f32_gap,
+                busy_share=prof["busy_share"])
 
-    def unfused(wav):
-        mel = batch_norm_inference(params["bn0"], logmel_spectrogram(wav, compute_dtype=torch.bfloat16))
-        frames, clip = convnext_heads(params, convnext_features(params, mel[..., None].to(torch.bfloat16)))
-        return {"frame_embs": frames.transpose(1, 2), "clipwise_output": clip}
 
-    def encoder(wav, lens, fused: bool):
-        t0 = time.perf_counter()
-        wav_t = torch.from_numpy(wav).to(dev)
-        if fused:
-            out = convnext_apply(params, wav_t, torch.from_numpy(lens).to(dev),
-                                 compute_dtype=torch.bfloat16)
-        else:
-            out = unfused(wav_t)
+def breakdown(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
+    """Host clock around each stage of one request, synchronised: host
+    load + resample; the bf16 encoder through its graph and eagerly; the
+    projection + beam search through its graph and eagerly (the same f32
+    computation); the public API's default f32 encoder (the plain
+    frontend) through its graph and eagerly. Graph and eager run in
+    alternating order in the same loop. The bf16 encoder's graph stage is
+    split: ``encoder_copy_in`` copies the waveforms and lengths into the
+    graph's inputs as a request does (through its pinned staging), of which
+    ``encoder_stage_host`` is the host's copy into the staging buffers
+    (``encoder_stage_host_numpy`` the same by ``np.copyto``, timed only);
+    ``encoder_copy_in_pageable`` copies them straight from pageable memory
+    (timed only: that copy waits for the stream); ``*_replay`` is the device
+    time of a replay alone (CUDA events) and ``*_replay_host`` the host
+    clock of the replay call; ``encoder_copy_out`` copies the outputs'
+    rows. ``encoder_eager_copy_in`` is the eager path's copy of the same
+    arrays."""
+    import torch
+
+    from conette_torch.huggingface.preprocessor import CoNeTTEPreprocessor
+    from conette_torch.models.conette import encode_audio, forward_generate
+    from conette_torch.models.convnext import convnext_apply
+
+    dev = model.device
+    cfg = model.model_cfg
+    pre = model.preprocessor
+    bos = torch.from_numpy(bos_ids(model, tasks)).to(dev)
+    f32_pre = CoNeTTEPreprocessor(model.encoder_params, device=dev, compute_dtype=torch.float32)
+    times: dict[str, list[float]] = {k: [] for k in (
+        "host_load_resample", "encoder", "encoder_copy_in", "encoder_stage_host",
+        "encoder_stage_host_numpy", "encoder_copy_in_pageable", "encoder_replay",
+        "encoder_replay_host", "encoder_copy_out", "encoder_eager",
+        "encoder_eager_copy_in", "encoder_f32", "encoder_f32_replay", "encoder_f32_replay_host",
+        "encoder_f32_eager", "decoder", "decoder_replay", "decoder_replay_host",
+        "decoder_eager")}
+
+    def timed(name, fn):
         torch.cuda.synchronize()
-        times["encoder" if fused else "encoder_unfused_frontend"].append(
-            (time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
         return out
 
-    enc = None
-    with torch.inference_mode():
-        for i in range(4):
-            t0 = time.perf_counter()
-            wav, lens = model.preprocessor.load_resample(clips, 44100)
-            times["host_load_resample"].append((time.perf_counter() - t0) * 1e3)
-            for fused in ((False, True) if i % 2 else (True, False)):
-                out = encoder(wav, lens, fused)
-                enc = out if fused else enc
-            t0 = time.perf_counter()
-            memory, pad = encode_audio(model.params, model.model_cfg,
-                                       enc["frame_embs"].transpose(1, 2), enc["frame_embs_lens"])
-            forward_generate(model.params, model.model_cfg, memory, pad, bos,
-                             forbid_rep_mask=model.forbid_rep_mask)
-            torch.cuda.synchronize()
-            times["decoder"].append((time.perf_counter() - t0) * 1e3)
-    return {k: statistics.median(v) for k, v in times.items()}
+    def last(cache):
+        return next(reversed(cache.programs.values()))  # the program used last
 
-
-def device_busy(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
-    """One request under ``torch.profiler``: the kernels' summed device time
-    against the request's wall time (one stream, so the sum is the busy
-    time; the profiler's own cost lengthens the wall time, so the share is
-    a lower bound), the five kernels that take the most of it, and the
-    device time of each of the port's own kernels in the request."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model(clips, sr=44100, task=tasks)
+    def replay(name, cache):
+        prog = last(cache)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # kernel rows only: CPU op rows carry their kernels' time as well
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    device = sum(ms for _, ms in rows)
-    top = sorted(rows, key=lambda r: -r[1])[:5]
-    kernels = {"logmel_bf16": ("logmel_bf16_kernel",),
-               "convnext_block": ("block_pack_kernel", "block_dwln_kernel",
-                                  "convnext_block_kernel", "block_reduce_kernel"),
-               "downsample": ("seam_pack_kernel", "seam_kernel")}
-    ours = {name: sum(ms for k, ms in rows if any(n in k for n in names))
-            for name, names in kernels.items()}
-    return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
-            "top": [[k[:60], round(ms, 3)] for k, ms in top], "ours_ms": ours}
+        start.record()
+        t0 = time.perf_counter()
+        prog.graph.replay()
+        times[name + "_host"].append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        times[name].append(start.elapsed_time(end))
+
+    def copy_in(wav, lens):
+        with torch.inference_mode():
+            last(pre.graphs)._copy_in((wav, lens))
+
+    def stage_host(wav, lens, numpy=False):
+        with torch.inference_mode():
+            for stage, x in zip(last(pre.graphs).staging, (wav, lens)):
+                if numpy:
+                    np.copyto(stage.numpy(), x)
+                else:
+                    stage.copy_(torch.from_numpy(x))
+
+    def copy_in_pageable(wav, lens):
+        with torch.inference_mode():
+            for dst, x in zip(last(pre.graphs).static_inputs, (wav, lens)):
+                dst.copy_(torch.from_numpy(x))
+
+    def copy_out():
+        with torch.inference_mode():
+            return [o[:BATCH].clone() for o in last(pre.graphs).outputs]
+
+    def eager_encoder(wav, lens, dtype):
+        with torch.inference_mode():
+            return convnext_apply(model.encoder_params, torch.from_numpy(wav).to(dev),
+                                  torch.from_numpy(lens).to(dev), compute_dtype=dtype)
+
+    def eager_decoder(audio, a_lens):
+        with torch.inference_mode():
+            memory, pad = encode_audio(model.params, cfg, audio, a_lens)
+            return forward_generate(model.params, cfg, memory, pad, bos,
+                                    forbid_rep_mask=model.forbid_rep_mask)
+
+    for i in range(5):  # the first round captures the f32 encoder: not kept
+        wav, lens = timed("host_load_resample", lambda: pre.load_resample(clips, 44100))
+        order = (False, True) if i % 2 else (True, False)
+        for graph in order:
+            if graph:
+                audio, a_lens, _ = timed("encoder", lambda: pre.encode(wav, lens))
+                timed("encoder_copy_in", lambda: copy_in(wav, lens))
+                replay("encoder_replay", pre.graphs)
+                timed("encoder_copy_out", copy_out)
+                timed("encoder_stage_host", lambda: stage_host(wav, lens))
+                timed("encoder_stage_host_numpy", lambda: stage_host(wav, lens, numpy=True))
+                timed("encoder_copy_in_pageable", lambda: copy_in_pageable(wav, lens))
+                timed("encoder_f32", lambda: f32_pre.encode(wav, lens))
+                replay("encoder_f32_replay", f32_pre.graphs)
+            else:
+                timed("encoder_eager_copy_in",
+                      lambda: (torch.from_numpy(wav).to(dev), torch.from_numpy(lens).to(dev)))
+                timed("encoder_eager", lambda: eager_encoder(wav, lens, torch.bfloat16))
+                timed("encoder_f32_eager", lambda: eager_encoder(wav, lens, torch.float32))
+        for graph in order:
+            if graph:
+                timed("decoder", lambda: model._generate(
+                    audio, a_lens, bos, model.forbid_rep_mask, cfg.beam_size, cfg.min_pred_size,
+                    cfg.max_pred_size))
+                replay("decoder_replay", model.graphs)
+            else:
+                timed("decoder_eager", lambda: eager_decoder(audio, a_lens))
+    return {k: statistics.median(v[1:]) for k, v in times.items()}
 
 
 def kernel_line(records: list[dict], launches: dict) -> dict:
@@ -757,6 +1133,7 @@ def kernel_line(records: list[dict], launches: dict) -> dict:
                                           "ms", "launch_ms", "plain_ms", "library_ms",
                                           "unfused_ms", "bound_ms", "bound_by", "max_abs_err",
                                           "max_rel_err", "same_bits_twice", "same_bits_repeated",
+                                          "same_bits_poisoned",
                                           "launch_ms_by_splits", "launch_ms_by_slices") if k in r}
                        for r in rs],
         })
@@ -799,14 +1176,22 @@ def main() -> int:
         print(f"  clips/s over the 3 requests: {summary['clips_per_s']:.2f}", flush=True)
         print(f"phase 4: corpus serving, {CORPUS_FILES} WAV and FLAC files, batch 8", flush=True)
         served = serve_corpus(model, work)
+        print("phase 5: export at batch 8 x 10 s, save, load, replay", flush=True)
+        exported = export_phase(model, work)
 
     line = kernel_line(records, summary["launches"])
     for k in line["kernels"]:
+        # wrapper launches: the warm-up and capture of each path's graphs;
+        # replay_calls: the kernel's calls in a profiled replay of the path
+        k["replay_calls_per_request"] = summary["replayed_request"]["calls"][k["name"]]
         k["serving_launches"] = served["launches"][k["name"]]
-        if k["launches"] <= 0 or k["serving_launches"] <= 0:
+        k["serving_replay_calls"] = served["replay_calls"][k["name"]]
+        k["export_launches"] = exported["launches"][k["name"]]
+        if min(k["launches"], k["replay_calls_per_request"], k["serving_launches"],
+               k["serving_replay_calls"], k["export_launches"]) <= 0:
             raise AssertionError(f"{k['name']} never launched on a path")
     print(json.dumps({"card": smi, "records": records, "main_path": summary,
-                      "serving": served}), flush=True)
+                      "serving": served, "export": exported}), flush=True)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -620,14 +620,9 @@ cudaError_t launch(const void* x, const void* dw_w, const void* dw_b, const void
                    void* partial, int n_pix, int T, int F, int n_split, float eps,
                    cudaStream_t stream) {
   using K = Cfg<C>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        convnext_block_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(K::SMEM));
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static size_t smem_done[hopper::kMaxDevices] = {};
+  cudaError_t err = hopper::allow_smem(convnext_block_kernel<C>, K::SMEM, smem_done);
+  if (err != cudaSuccess) return err;
   // work: the packed W1 and W2 (2·C·H), then dw_w (49·C) and scale (C), bf16
   __nv_bfloat16* wpack = static_cast<__nv_bfloat16*>(work);
   const __nv_bfloat16* dwb = wpack + 2 * C * K::H;
@@ -636,7 +631,7 @@ cudaError_t launch(const void* x, const void* dw_w, const void* dw_b, const void
   block_pack_kernel<<<(n8 + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(w1), static_cast<const float*>(w2),
       static_cast<const float*>(dw_w), static_cast<const float*>(scale), wpack, C);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);

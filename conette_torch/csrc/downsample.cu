@@ -419,13 +419,9 @@ cudaError_t launch_slices(const __nv_bfloat16* x, const float* ln_w, const float
                           const __nv_bfloat16* wpack, const float* bias, __nv_bfloat16* out,
                           int n_out, int T, int F, int ctas, float eps, cudaStream_t stream) {
   using K = SeamCfg<C, NS>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        seam_kernel<C, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(K::SMEM));
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static size_t smem_done[hopper::kMaxDevices] = {};
+  cudaError_t err = hopper::allow_smem(seam_kernel<C, NS>, K::SMEM, smem_done);
+  if (err != cudaSuccess) return err;
   seam_kernel<C, NS><<<ctas, K::THREADS, K::SMEM, stream>>>(x, ln_w, ln_b, wpack, bias, out, n_out,
                                                             T, F, K::N / NS, eps);
   return cudaGetLastError();

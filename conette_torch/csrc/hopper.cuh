@@ -4,8 +4,8 @@
 // products (m64nNk16, bf16 in, f32 accumulate, B K-major in shared memory
 // without swizzle; A the same, or in registers in the m16n8k16 fragment
 // layout), the A-tile layout those descriptors read, and small bf16
-// helpers.
-// Everything here is inline device code for sm_90a; the build hashes this
+// helpers; on the host, the raise of a kernel's shared-memory limit.
+// Everything else here is inline device code for sm_90a; the build hashes this
 // header with the sources, so an edit rebuilds every kernel.
 
 #pragma once
@@ -18,6 +18,24 @@
 namespace hopper {
 
 constexpr int kTileRows = 64;  // rows of a wgmma A tile
+constexpr int kMaxDevices = 64;
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device, once for each device and larger size; `done` is the call site's
+// record of what each device has. A launch inside a CUDA graph capture then
+// sets no attribute after its warm-up on that device.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
+}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));

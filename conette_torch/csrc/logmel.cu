@@ -527,13 +527,9 @@ cudaError_t launch_bf16(const float* x, const __nv_bfloat16* basis, const __nv_b
                         const int* bands, const float* scale, const float* shift, float* out,
                         int B, int S, int T, int hop, int n_chunks, int fb_elems, float amin,
                         float log_ref, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        logmel_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static size_t smem_done[hopper::kMaxDevices] = {};
+  const cudaError_t err = hopper::allow_smem(logmel_bf16_kernel, kSmemMax, smem_done);
+  if (err != cudaSuccess) return err;
   const Bf16Smem L = bf16_smem(hop, fb_elems);
   if (L.ring < 2 || L.total > static_cast<size_t>(kSmemMax)) return cudaErrorInvalidValue;
   const dim3 grid((T + kTM - 1) / kTM, B);
@@ -571,9 +567,8 @@ extern "C" int conette_logmel(const void* x, const void* basis, const void* fb, 
   }
   const dim3 grid((T + kTM - 1) / kTM, B);
   const size_t smem = round_up(sizeof(float) * span_of(hop), 128) + sizeof(float) * kTM * kNC;
-  cudaError_t err = cudaFuncSetAttribute(logmel_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  static size_t smem_done[hopper::kMaxDevices] = {};
+  const cudaError_t err = hopper::allow_smem(logmel_f32_kernel, smem, smem_done);
   if (err != cudaSuccess) return err;
   logmel_f32_kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(basis),

@@ -12,8 +12,7 @@ Counterpart of ``conette_tpu/decoding/beam.py`` with its exact semantics
 - at the first step only beam 0 competes;
 - a beam that emits EOS at step i retires with avg = sum / (i + 1), the
   live beams continue and the selection width shrinks with them; at the
-  last step every live beam retires; the loop stops early once no beam is
-  alive;
+  last step every live beam retires;
 - ``NEG = -1e30`` stands for minus infinity.
 
 Ties: the reference keeps the lowest flat index first (parent-major, then
@@ -25,6 +24,15 @@ The state is a fixed (B·beam) batch: retired beams are score-masked so
 they sort last, "top-k over live beams only" is the rank test
 ``rank < n_alive``, and the KV cache follows the parents by an index
 gather (``models/decoder.py::reorder_cache``).
+
+The JAX package leaves its loop once no beam is alive, a test that it runs
+on the device. Here all ``max_pred_size`` steps run and nothing is read
+back to the host, so the search can be captured in a CUDA graph. The extra
+steps change nothing in :class:`BeamResult`: with no beam alive, every
+candidate score is ``NEG``, so ``valid`` is false for every rank, nothing
+finishes, and ``fin_preds``, ``fin_avg`` and ``fin_count`` keep their
+values; the state that does move (``preds``, the cache, the tokens) reaches
+no output.
 """
 
 from __future__ import annotations
@@ -32,9 +40,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
-from conette_torch.decoding.greedy import masked_logits
+from conette_torch.decoding.greedy import masked_logits, one_hot_bool
 from conette_torch.models.decoder import (
     DecoderConfig,
     Params,
@@ -96,15 +103,13 @@ def beam_search(
     sum_lprobs = torch.full((b, k), NEG, device=dev)
     sum_lprobs[:, 0] = 0.0  # only beam 0 competes at the first step
     alive = torch.ones((b, k), dtype=torch.bool, device=dev)
-    mh = F.one_hot(tok, vocab).bool().reshape(b, k, vocab)
+    mh = one_hot_bool(tok, vocab).reshape(b, k, vocab)
     fin_preds = torch.full((b, k, max_pred_size), pad, dtype=torch.int64, device=dev)
     fin_avg = torch.zeros((b, k), device=dev)
     fin_count = torch.zeros((b,), dtype=torch.int64, device=dev)
     rank = torch.arange(k, device=dev)[None, :]
 
     for step in range(max_pred_size):
-        if not bool(alive.any()):
-            break
         raw = decode_step(params, cfg, cache, ctx, tok, step)
         logits = masked_logits(
             raw, step, min_pred_size, eos, mh.reshape(b * k, vocab), forbid_rep_mask
@@ -124,9 +129,7 @@ def beam_search(
         emitted = torch.where(valid, token, pad)
         preds = preds.gather(1, parent[:, :, None].expand(-1, -1, max_pred_size))
         preds[:, :, step] = emitted
-        mh = mh.gather(1, parent[:, :, None].expand(-1, -1, vocab)) | F.one_hot(
-            emitted, vocab
-        ).bool()
+        mh = mh.gather(1, parent[:, :, None].expand(-1, -1, vocab)) | one_hot_bool(emitted, vocab)
 
         finishing = valid & ((token == eos) | (step == max_pred_size - 1))
         # retire finishing winners into slots fin_count .. (in score-rank order)

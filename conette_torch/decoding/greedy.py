@@ -3,8 +3,16 @@
 Counterpart of ``conette_tpu/decoding/greedy.py`` (reference
 ``nn/decoding/greedy.py:18-131``): min-length EOS masking and
 forbid-repetition masking before selection, finished rows emit the pad
-one-hot logits row, output logits (B, vocab, L), early exit once every row
-has emitted EOS.
+one-hot logits row, output logits (B, vocab, L).
+
+The JAX package leaves its loop once every row has emitted EOS, a test
+that it runs on the device. Here all ``max_pred_size`` steps run and
+nothing is read back to the host, so the loop can be captured in a CUDA
+graph. The result equals the early-exit result bit for bit: once a row has
+finished, every later step writes ``pad`` to its token and the pad row to
+its logits, which is what both outputs were filled with; ``finished``
+stays set, and the row's step computation reaches no output. So once
+every row has finished, a step changes neither output.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from conette_torch.models.decoder import (
     init_self,
 )
 
-__all__ = ["GreedyResult", "greedy_search", "masked_logits"]
+__all__ = ["GreedyResult", "greedy_search", "masked_logits", "one_hot_bool"]
 
 NEG_INF = float("-inf")
 
@@ -29,6 +37,11 @@ NEG_INF = float("-inf")
 class GreedyResult(NamedTuple):
     preds: torch.Tensor  # (B, max_pred_size) token ids (pad after eos)
     logits: torch.Tensor  # (B, vocab, max_pred_size)
+
+
+def one_hot_bool(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) bool one-hot rows of ``ids``, checked by no host read."""
+    return ids[..., None] == torch.arange(n, device=ids.device)
 
 
 def masked_logits(
@@ -70,17 +83,14 @@ def greedy_search(
     ctx = init_cross(params, cfg, memory, memory_key_padding_mask)
     cache = init_self(cfg, b, max_pred_size, memory.dtype, dev)
 
-    pad_row = torch.full((vocab,), NEG_INF, device=dev)
-    pad_row[cfg.pad_id] = 0.0
+    pad_row = torch.where(torch.arange(vocab, device=dev) == cfg.pad_id, 0.0, NEG_INF)
     toks = torch.full((b, max_pred_size), cfg.pad_id, dtype=torch.int64, device=dev)
     logits_out = pad_row[None, :, None].repeat(b, 1, max_pred_size)
 
     tok = bos_ids.to(device=dev, dtype=torch.int64)
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
-    mh = torch.nn.functional.one_hot(tok, vocab).bool()
+    mh = one_hot_bool(tok, vocab)
     for step in range(max_pred_size):
-        if bool(finished.all()):
-            break
         raw = decode_step(params, cfg, cache, ctx, tok, step)
         logits = masked_logits(raw, step, min_pred_size, cfg.eos_id, mh, forbid_rep_mask)
         next_tok = logits.argmax(dim=-1)
@@ -88,5 +98,5 @@ def greedy_search(
         tok = torch.where(finished, cfg.pad_id, next_tok)
         toks[:, step] = tok
         finished = finished | (next_tok == cfg.eos_id)
-        mh = mh | torch.nn.functional.one_hot(tok, vocab).bool()
+        mh = mh | one_hot_bool(tok, vocab)
     return GreedyResult(preds=toks, logits=logits_out)

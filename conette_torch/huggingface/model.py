@@ -21,10 +21,22 @@ On the card, TF32 is switched off for matmuls and cuDNN convolutions
 float32. With ``compute_dtype=torch.bfloat16`` the encoder runs its log-mel
 frontend, blocks and seams through the hand-written CUDA kernels; the
 decoder stays f32.
+
+On the card a request runs two captured programs (``conette_torch/graphs.py``),
+the counterparts of the JAX package's ``jax.jit``s: the encoder, one CUDA
+graph for each padded length (``CoNeTTEPreprocessor``), and the projection
+with the beam or greedy search, one graph for each (memory length, dtype,
+beam, min, max, forbid mask present) (:meth:`CoNeTTEModel._generate`, as
+``_generate_fn``). Both run at ``graphs.REQUEST_BATCH`` rows: a request of fewer
+clips is padded to them, a larger one runs in chunks of them. A replay
+reads nothing back to the host. The model keeps at most
+``MAX_MODEL_GRAPHS`` programs of its own (the preprocessor
+``MAX_ENCODER_GRAPHS`` encoder graphs) and drops the least recently used.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -33,10 +45,11 @@ from typing import Any, Iterable, Optional, Union
 import numpy as np
 import torch
 
+from conette_torch.graphs import GraphCache
 from conette_torch.huggingface.audioset import load_audioset_names, probs_to_names
 from conette_torch.huggingface.config import CoNeTTEConfig
 from conette_torch.huggingface.convert import convert_torch_checkpoint, load_params_npz
-from conette_torch.huggingface.preprocessor import AudioInput, CoNeTTEPreprocessor
+from conette_torch.huggingface.preprocessor import BUCKETS_S, AudioInput, CoNeTTEPreprocessor
 from conette_torch.models.conette import (
     ConetteConfig,
     add_task_tokens,
@@ -52,6 +65,12 @@ from conette_torch.tokenization import AACTokenizer
 from conette_torch.weights import save_tree, to_torch
 
 pylog = logging.getLogger(__name__)
+
+# the model's own captured programs: for each bucket, the decode of a
+# request at one setting (one memory length a bucket) and the batch of
+# serving.caption_corpus at one batch size and beam. Other settings take
+# the place of the least recently used.
+MAX_MODEL_GRAPHS = 2 * len(BUCKETS_S)
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -141,6 +160,7 @@ class CoNeTTEModel:
             compute_dtype=compute_dtype,
         )
         self.params = to_torch(model_params, self.device)
+        self.graphs = GraphCache(MAX_MODEL_GRAPHS)
 
         self.forbid_rep_mask = None
         if fit:
@@ -230,8 +250,7 @@ class CoNeTTEModel:
 
         lens = batch["audio_shape"][:, -1]
         preds, lprobs, mult_preds, mult_lprobs = self._generate(
-            batch["audio"].float(), lens, torch.from_numpy(bos_np).to(self.device),
-            forbid, beam, min_p, max_p,
+            batch["audio"].float(), lens, bos_np, forbid, beam, min_p, max_p,
         )
         preds_np = preds.to(torch.int32).cpu().numpy()
         mult_np = mult_preds.to(torch.int32).cpu().numpy()
@@ -249,7 +268,24 @@ class CoNeTTEModel:
             out["tags"] = tags
         return out
 
+    @torch.inference_mode()
     def _generate(self, audio, lens, bos_ids, forbid, beam: int, min_p: int, max_p: int):
+        """The projection and the beam search (greedy at ``beam <= 1``) of
+        (B, T, 768) frame embeddings, their (B,) lengths and (B,) BOS ids
+        (a tensor or a numpy array) → (preds, avg lprobs, mult preds, mult
+        lprobs). On the card one captured program for each (memory length,
+        dtype, beam, min, max, forbid mask present), replayed over chunks of
+        ``REQUEST_BATCH`` rows."""
+        audio = torch.as_tensor(audio, device=self.device)
+        lens = torch.as_tensor(lens, device=self.device).to(torch.int64)
+        bos_ids = torch.as_tensor(bos_ids).to(torch.int64)
+        key = ("generate", audio.shape[1], audio.dtype, beam, min_p, max_p, forbid is not None)
+        fn = functools.partial(self._generate_eager, beam=beam, min_p=min_p, max_p=max_p)
+        inputs = (audio, lens, bos_ids) + ((forbid,) if forbid is not None else ())
+        return self.graphs.run_batched(key, fn, inputs, self.device, n_batched=3)
+
+    def _generate_eager(self, audio, lens, bos_ids, forbid=None, *, beam: int, min_p: int,
+                        max_p: int):
         memory, pad_mask = encode_audio(self.params, self.model_cfg, audio, lens)
         if beam <= 1:
             g = forward_greedy(
@@ -389,3 +425,25 @@ def _extract_tokenizer_state(extra: Any) -> Any:
         if "tokenizer" in str(key) and isinstance(val, dict) and "tokenizer" in val:
             return val
     return None
+
+
+def eval_and_disable_grad(*models: Any) -> None:
+    """Put models in inference use (the reference helper of the same name):
+    an ``nn.Module`` goes to eval mode with its parameters frozen; the
+    weights of a :class:`CoNeTTEModel`, plain tensors that it only runs in
+    inference mode, stop requiring gradients."""
+    for m in models:
+        if isinstance(m, torch.nn.Module):
+            m.eval()
+            m.requires_grad_(False)
+        elif isinstance(m, CoNeTTEModel):
+            for t in _tensor_leaves((m.params, m.encoder_params)):
+                t.requires_grad_(False)
+
+
+def _tensor_leaves(tree: Any) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _tensor_leaves(sub)]
+    return [tree] if isinstance(tree, torch.Tensor) else []

@@ -3,9 +3,16 @@
 Counterpart of ``conette_tpu/huggingface/preprocessor.py`` (reference
 ``huggingface/preprocessor.py:21-154``): accepts file paths, arrays, or
 lists of either with per-item sample rates; resamples to 32 kHz on the host,
-averages channels, pads to a length bucket and stacks, then runs the
-encoder on the model's device, returning ``{"audio": (B, T, 768),
-"audio_shape": (B, 2), "clip_probs": (B, 527)}``.
+averages channels, pads to a length bucket (or, with ``use_buckets=False``,
+to the longest clip) and stacks, then runs the encoder on the model's
+device, returning ``{"audio": (B, T, 768), "audio_shape": (B, 2),
+"clip_probs": (B, 527)}``.
+
+On a CUDA device the encoder is one CUDA graph for each padded length
+(at the compute dtype, and ``REQUEST_BATCH`` rows: a request is padded to
+them or cut into chunks of them), captured on first use and replayed after
+(``conette_torch/graphs.py``): the counterpart of the JAX package's
+``_encode_fn``, one ``jax.jit`` program. On the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from typing import Any, Iterable, Union
 import numpy as np
 import torch
 
+from conette_torch.graphs import GraphCache
 from conette_torch.models.convnext import convnext_apply
 from conette_torch.ops.resample import resample_numpy
 from conette_torch.utils.audio_io import load_audio
@@ -25,6 +33,10 @@ FEAT_SIZE = 768
 # Padding buckets (seconds at 32 kHz). Clips longer than the last bucket
 # are padded up to the next 5 s multiple.
 BUCKETS_S = (1, 2, 3, 5, 7, 10, 15, 20, 30)
+# encoder graphs kept: with the rows (REQUEST_BATCH) and the compute dtype
+# fixed, one for each bucket. Lengths past the last bucket, or any length
+# with use_buckets=False, take the place of the least recently used.
+MAX_ENCODER_GRAPHS = len(BUCKETS_S)
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 AudioInput = Union[str, ArrayLike, Iterable[str], Iterable[ArrayLike]]
@@ -48,10 +60,13 @@ class CoNeTTEPreprocessor:
         *,
         device: torch.device | str,
         compute_dtype: torch.dtype = torch.float32,
+        use_buckets: bool = True,
     ) -> None:
         self.params = params
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
+        self.use_buckets = use_buckets
+        self.graphs = GraphCache(MAX_ENCODER_GRAPHS)
 
     @property
     def target_sr(self) -> int:
@@ -109,7 +124,9 @@ class CoNeTTEPreprocessor:
             mono.append(w.mean(axis=0).astype(np.float32))
 
         lens = np.asarray([len(m) for m in mono], np.int64)
-        batch = np.zeros((len(mono), bucket_length(int(lens.max()))), np.float32)
+        max_len = int(lens.max())
+        pad_len = bucket_length(max_len) if self.use_buckets else max_len
+        batch = np.zeros((len(mono), pad_len), np.float32)
         for i, m in enumerate(mono):
             batch[i, : len(m)] = m
         return batch, lens
@@ -124,18 +141,27 @@ class CoNeTTEPreprocessor:
         wav, lens = self.load_resample(x, sr)
         if x_shapes is not None:
             lens = np.asarray(x_shapes)[:, -1]
-        outs = convnext_apply(
-            self.params,
-            torch.from_numpy(wav).to(self.device),
-            torch.from_numpy(np.asarray(lens)).to(self.device),
-            compute_dtype=self.compute_dtype,
-        )
-        n = outs["frame_embs_lens"]
+        audio, n, clip = self.encode(wav, np.asarray(lens, np.int64))
         return {
-            "audio": outs["frame_embs"].transpose(1, 2),  # (B, T, 768)
+            "audio": audio,
             "audio_shape": torch.stack([torch.full_like(n, FEAT_SIZE), n], dim=1),
-            "clip_probs": outs["clipwise_output"],
+            "clip_probs": clip,
         }
+
+    def encode(self, wav: np.ndarray, lens: np.ndarray) -> tuple[torch.Tensor, ...]:
+        """The encoder on loaded (B, S) waveforms and (B,) lengths: (B, T, 768)
+        frame embeddings, (B,) frame counts, (B, 527) clip probabilities. On
+        the card one captured program for each (REQUEST_BATCH, S, compute
+        dtype), replayed over chunks of ``REQUEST_BATCH`` rows."""
+        return self.graphs.run_batched((wav.shape[1], self.compute_dtype), self._encode,
+                                       (wav, lens), self.device, n_batched=2)
+
+    def _encode(self, wav: torch.Tensor, lens: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """(B, S) waveforms and (B,) lengths → (B, T, 768) frame embeddings,
+        (B,) frame counts, (B, 527) clip probabilities."""
+        outs = convnext_apply(self.params, wav, lens, compute_dtype=self.compute_dtype)
+        return (outs["frame_embs"].transpose(1, 2).contiguous(), outs["frame_embs_lens"],
+                outs["clipwise_output"])
 
 
 def _as_numpy(x: Any) -> np.ndarray:

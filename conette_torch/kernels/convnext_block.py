@@ -40,6 +40,13 @@ here, in Python that the CPU tests reach:
 The C entry point is ``conette_convnext_block(x, dw_w, dw_b, ln_w, ln_b,
 w1, w2, b1, b2, scale, work, y, out, partial, B, T, F, C, S, eps,
 stream)``: 14 pointers, 5 ints, 1 float.
+
+On the card the wrapper calls the custom op ``conette_torch::convnext_block``
+(:func:`convnext_block_op`), whose only implementation is CUDA's: the
+kernel through :func:`launch_block`. Its fake implementation gives the
+output's shape, so ``torch.export`` and CUDA graph capture see one node a
+call. A launch reads nothing on the host and runs on the current stream,
+so a call can be captured.
 """
 
 from __future__ import annotations
@@ -232,6 +239,33 @@ def launch_block(x: torch.Tensor, ops: BlockOperands, plan: BlockPlan, eps: floa
     return out
 
 
+@torch.library.custom_op("conette_torch::convnext_block", mutates_args=(), device_types="cuda")
+def convnext_block_op(
+    x: torch.Tensor,
+    dw_weight: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_weight: torch.Tensor,
+    ln_bias: torch.Tensor,
+    pw1_weight: torch.Tensor,
+    pw1_bias: torch.Tensor,
+    pw2_weight: torch.Tensor,
+    pw2_bias: torch.Tensor,
+    layer_scale: torch.Tensor,
+    eps: float,
+) -> torch.Tensor:
+    """The block kernel as a custom op on CUDA tensors (no other device)."""
+    b, t, f, c = x.shape
+    ops = prepare_block_operands(dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight, pw1_bias,
+                                 pw2_weight, pw2_bias, layer_scale)
+    return launch_block(x, ops, block_plan(b * t * f, c, sm_count(x.device)), eps)
+
+
+@convnext_block_op.register_fake
+def _convnext_block_fake(x, dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight, pw1_bias,
+                         pw2_weight, pw2_bias, layer_scale, eps):
+    return torch.empty_like(x)
+
+
 def fused_convnext_block(
     x: torch.Tensor,
     dw_weight: torch.Tensor,
@@ -249,7 +283,8 @@ def fused_convnext_block(
 
     On the card ``x`` must be contiguous bf16 with C in ``SUPPORTED_C``;
     the parameters may be f32 or bf16 (weights are rounded to bf16 as the
-    plain version rounds them). Each call adds one to
+    plain version rounds them). On the card it calls
+    ``conette_torch::convnext_block``. Each launch adds one to
     ``fused_convnext_block.launches``; its pack, phase A and (for a split
     block) reduction launches are part of the same call.
     """
@@ -261,9 +296,7 @@ def fused_convnext_block(
         raise ValueError(f"fused_convnext_block runs on cuda or cpu, got {x.device}")
     if x.dim() != 4:
         raise ValueError(f"expected (B, T, F, C) activations, got {tuple(x.shape)}")
-    b, t, f, c = x.shape
-    ops = prepare_block_operands(*args)
-    return launch_block(x, ops, block_plan(b * t * f, c, sm_count(x.device)), eps)
+    return torch.ops.conette_torch.convnext_block(x, *args, eps)
 
 
 fused_convnext_block.launches = 0

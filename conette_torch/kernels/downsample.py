@@ -31,6 +31,11 @@ Python that the CPU tests reach:
 The C entry point is ``conette_downsample(x, ln_w, ln_b, w, bias, work, out,
 B, T, F, C, slices, ctas, device, eps, stream)``: 7 pointers, 7 ints, 1
 float; it launches on ``device`` itself, so the wrapper switches no device.
+
+On the card the wrapper calls the custom op ``conette_torch::downsample``
+(:func:`downsample_op`), whose only implementation is CUDA's: the kernel
+through :func:`launch_seam`. Its fake implementation gives the output's
+shape, so ``torch.export`` and CUDA graph capture see one node a call.
 """
 
 from __future__ import annotations
@@ -173,6 +178,27 @@ def launch_seam(x: torch.Tensor, ops: SeamOperands, plan: SeamPlan, eps: float =
     return out
 
 
+@torch.library.custom_op("conette_torch::downsample", mutates_args=(), device_types="cuda")
+def downsample_op(
+    x: torch.Tensor,
+    ln_weight: torch.Tensor,
+    ln_bias: torch.Tensor,
+    conv_weight: torch.Tensor,
+    conv_bias: torch.Tensor,
+    eps: float,
+) -> torch.Tensor:
+    """The seam kernel as a custom op on CUDA tensors (no other device)."""
+    b, t, f, c = x.shape
+    ops = prepare_seam_operands(ln_weight, ln_bias, conv_weight, conv_bias)
+    return launch_seam(x, ops, seam_plan(b * (t // 2) * (f // 2), c, sm_count(x.device)), eps)
+
+
+@downsample_op.register_fake
+def _downsample_fake(x, ln_weight, ln_bias, conv_weight, conv_bias, eps):
+    b, t, f, c = x.shape
+    return x.new_empty((b, t // 2, f // 2, 2 * c))
+
+
 def fused_downsample(
     x: torch.Tensor,
     ln_weight: torch.Tensor,
@@ -182,19 +208,18 @@ def fused_downsample(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """(B, T, F, C) → (B, T // 2, F // 2, 2C). On the card ``x`` must be
-    contiguous bf16 with C in ``SUPPORTED_C``. Each call adds one to
+    contiguous bf16 with C in ``SUPPORTED_C``, and the wrapper calls
+    ``conette_torch::downsample``. Each launch adds one to
     ``fused_downsample.launches``; its pack launch is part of the call."""
     if x.dim() != 4 or x.shape[1] < 2:
         raise ValueError(f"expected (B, T >= 2, F, C) activations, got {tuple(x.shape)}")
-    b, t, f, c = x.shape
-    if f % 2:
-        raise ValueError(f"the downsample seam needs an even F, got {f}")
+    if x.shape[2] % 2:
+        raise ValueError(f"the downsample seam needs an even F, got {x.shape[2]}")
     if x.device.type == "cpu":
         return downsample_reference(x, ln_weight, ln_bias, conv_weight, conv_bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_downsample runs on cuda or cpu, got {x.device}")
-    ops = prepare_seam_operands(ln_weight, ln_bias, conv_weight, conv_bias)
-    return launch_seam(x, ops, seam_plan(b * (t // 2) * (f // 2), c, sm_count(x.device)), eps)
+    return torch.ops.conette_torch.downsample(x, ln_weight, ln_bias, conv_weight, conv_bias, eps)
 
 
 fused_downsample.launches = 0

@@ -4,7 +4,11 @@
 → dB → optional per-mel affine (the inference bn0 folded in) with the
 hand-written Hopper kernel ``conette_torch/csrc/logmel.cu``; it replaces
 the TPU kernel ``conette_tpu/ops/pallas/logmel.py`` (``fused_logmel_frames``,
-reached through ``fused_logmel``). The arithmetic follows the TPU kernel
+reached through ``fused_logmel``). On the card the wrapper calls the custom
+op ``conette_torch::logmel`` (:func:`logmel_op`), whose only implementation
+is CUDA's: the kernel through :func:`launch_logmel`; its fake
+implementation gives the output's shape, so ``torch.export`` and CUDA
+graph capture see one node a call. The arithmetic follows the TPU kernel
 (``_logmel_kernel``): frames and basis are rounded to ``compute_dtype`` and
 multiplied with f32 accumulation; the power is rounded to ``compute_dtype``
 before the mel product, which the plain frontend
@@ -44,8 +48,10 @@ import numpy as np
 import torch
 
 from conette_torch.kernels import _build
-from conette_torch.ops.frontend import DEFAULT_LOGMEL, LogMelConfig, _mel_matrix
-from conette_torch.ops.stft import dft_basis, frame_signal
+from conette_torch.ops.frontend import (
+    DEFAULT_LOGMEL, LogMelConfig, _mel_matrix, mel_matrix_tensor,
+)
+from conette_torch.ops.stft import basis_tensor, dft_basis, frame_signal
 
 N_FFT = 1024
 N_MELS = 224
@@ -82,11 +88,11 @@ def logmel_reference(
     _check(cfg, compute_dtype)
     n_freqs = cfg.n_fft // 2 + 1
     frames = frame_signal(x.float(), cfg.n_fft, cfg.hop_length).to(compute_dtype).float()
-    basis = torch.from_numpy(dft_basis(cfg.n_fft)).to(x.device, compute_dtype).float()
+    basis = basis_tensor(cfg.n_fft, x.device, compute_dtype)
     spec = torch.matmul(frames, basis)
     re, im = spec[..., :n_freqs], spec[..., n_freqs:]
     power = (re * re + im * im).to(compute_dtype).float()
-    fb = torch.from_numpy(_mel_matrix(cfg)).to(x.device, compute_dtype).float()
+    fb = mel_matrix_tensor(cfg, x.device, compute_dtype)
     mel = torch.matmul(power, fb)
     log_mel = 10.0 * torch.log(torch.clamp_min(mel, cfg.amin)) / math.log(10.0) - log_ref(cfg)
     if bn_scale is not None:
@@ -304,6 +310,40 @@ def launch_logmel(
     return out
 
 
+@torch.library.custom_op("conette_torch::logmel", mutates_args=(), device_types="cuda")
+def logmel_op(
+    x: torch.Tensor,
+    bn_scale: torch.Tensor | None,
+    bn_shift: torch.Tensor | None,
+    sample_rate: int,
+    n_fft: int,
+    hop_length: int,
+    n_mels: int,
+    fmin: float,
+    fmax: float,
+    ref: float,
+    amin: float,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The log-mel kernel as a custom op on a CUDA waveform (no other
+    device), the cfg given field by field (``top_db`` is None)."""
+    cfg = LogMelConfig(sample_rate, n_fft, hop_length, n_mels, fmin, fmax, ref, amin)
+    dev = x.device
+    if bn_scale is None:
+        scale, shift = _identity_affine(dev)
+    else:
+        scale = bn_scale.to(dev, torch.float32).contiguous()
+        shift = bn_shift.to(dev, torch.float32).contiguous()
+    return launch_logmel(x.float().contiguous(), _operands(cfg, dev, compute_dtype), scale, shift,
+                         cfg)
+
+
+@logmel_op.register_fake
+def _logmel_fake(x, bn_scale, bn_shift, sample_rate, n_fft, hop_length, n_mels, fmin, fmax, ref,
+                 amin, compute_dtype):
+    return x.new_empty((x.shape[0], 1 + x.shape[1] // hop_length, n_mels), dtype=torch.float32)
+
+
 def fused_logmel(
     x: torch.Tensor,
     cfg: LogMelConfig = DEFAULT_LOGMEL,
@@ -314,8 +354,9 @@ def fused_logmel(
     """(B, S) waveform → (B, 1 + S // hop, n_mels) f32 log-mel, with the
     optional affine ``· bn_scale + bn_shift`` per mel bin. S must exceed
     ``n_fft // 2`` (reflect padding). On the card the kernel takes n_fft
-    1024, 224 mels and a hop that is a multiple of 16. Each launch adds one
-    to ``fused_logmel.launches``."""
+    1024, 224 mels and a hop that is a multiple of 16, and the wrapper
+    calls ``conette_torch::logmel``. Each launch adds one to
+    ``fused_logmel.launches``."""
     _check(cfg, compute_dtype)
     if x.dim() != 2:
         raise ValueError(f"expected a (B, S) waveform, got {tuple(x.shape)}")
@@ -333,14 +374,10 @@ def fused_logmel(
     if x.shape[1] <= cfg.n_fft // 2:
         raise ValueError(f"reflect padding needs more than {cfg.n_fft // 2} samples, "
                          f"got {x.shape[1]}")
-    dev = x.device
-    if bn_scale is None:
-        scale, shift = _identity_affine(dev)
-    else:
-        scale = bn_scale.to(dev, torch.float32).contiguous()
-        shift = bn_shift.to(dev, torch.float32).contiguous()
-    return launch_logmel(x.float().contiguous(), _operands(cfg, dev, compute_dtype), scale, shift,
-                         cfg)
+    return torch.ops.conette_torch.logmel(
+        x, bn_scale, bn_shift, cfg.sample_rate, cfg.n_fft, cfg.hop_length, cfg.n_mels, cfg.fmin,
+        cfg.fmax, cfg.ref, cfg.amin, compute_dtype,
+    )
 
 
 fused_logmel.launches = 0

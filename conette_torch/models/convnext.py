@@ -10,7 +10,10 @@ parameter shapes, so narrow encoders run through the same code.
 Routing: on a CUDA waveform in bf16, the log-mel frontend with bn0 folded
 into its affine epilogue goes through the hand-written log-mel kernel,
 every block through the block kernel and every seam through the seam
-kernel (``conette_torch/kernels/``). Everywhere else (the CPU, or f32 on
+kernel (``conette_torch/kernels/``), each called as its custom op
+(``conette_torch::logmel`` through ``fused_logmel``,
+``conette_torch::convnext_block``, ``conette_torch::downsample``), so
+``torch.export`` and CUDA graph capture see one node a kernel call. Everywhere else (the CPU, or f32 on
 the card) the encoder runs the plain PyTorch ops, as the JAX package runs
 XLA off its TPU kernel path. ``use_fused_frontend=True`` takes the
 frontend's kernel route on those paths too (its plain version on the CPU);
@@ -21,11 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from conette_torch.kernels.convnext_block import (
-    convnext_block_reference,
-    fused_convnext_block,
-)
-from conette_torch.kernels.downsample import fused_downsample
+from conette_torch.kernels.convnext_block import convnext_block_reference
 from conette_torch.kernels.logmel import fused_logmel
 from conette_torch.models.layers import (
     Params,
@@ -137,13 +136,13 @@ def convnext_features(params: Params, x: torch.Tensor) -> torch.Tensor:
         if i > 0:
             ds = params["downsample"][i - 1]
             if kernels:
-                y = fused_downsample(y, *seam_args(ds), eps=LN_EPS)
+                y = torch.ops.conette_torch.downsample(y, *seam_args(ds), LN_EPS)
             else:
                 y = layer_norm(ds["norm"], y, eps=LN_EPS)
                 y = conv2d(ds["conv"], y, stride=(2, 2))
         for block in stage:
             if kernels:
-                y = fused_convnext_block(y, *block_args(block), eps=LN_EPS)
+                y = torch.ops.conette_torch.convnext_block(y, *block_args(block), LN_EPS)
             else:
                 y = convnext_block(block, y)
     return y

@@ -12,25 +12,35 @@ layer (:func:`reorder_cache`). The JAX package's "ancestry" map and its
 dense one-hot reorder matmul were formulations for the TPU; at f32 they
 give the same result as this gather. Cross-attention K/V are computed once
 per clip (:class:`CrossContext`) and shared by the clip's beams.
+
+A step reads nothing back to the host and copies nothing from it: the
+sinusoidal table lives on the device (:func:`position_table`, built once
+a key) and ``step`` is a Python int, so a decode loop can be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from conette_torch.models.layers import (
     Params,
+    cast,
     embedding,
+    embedding_init,
+    f32,
     gelu,
     layer_norm,
     linear,
     linear_init,
     xavier_uniform,
 )
+from conette_torch.weights import device_constant
 
 LN_EPS = 1e-5
 NEG_INF = -1e30
@@ -59,6 +69,13 @@ def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
     return table.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def position_table(device: torch.device, d_model: int, max_len: int) -> torch.Tensor:
+    """:func:`sinusoidal_positions` as an f32 (max_len, d_model) tensor on
+    ``device``, uploaded once for each key; a decode step reads its row."""
+    return device_constant(sinusoidal_positions(max_len, d_model), device)
+
+
 # --------------------------------------------------------------------- init
 def attention_init(gen: torch.Generator, d_model: int) -> Params:
     """torch MultiheadAttention init: xavier-uniform packed in-projection,
@@ -76,14 +93,11 @@ def attention_init(gen: torch.Generator, d_model: int) -> Params:
 
 
 def decoder_init(gen: torch.Generator, cfg: DecoderConfig) -> Params:
-    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen)
-    emb[cfg.pad_id] = 0.0
-
     def norm() -> Params:
         return {"weight": torch.ones(cfg.d_model), "bias": torch.zeros(cfg.d_model)}
 
     return {
-        "emb": {"weight": emb},
+        "emb": embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.pad_id),
         "classifier": linear_init(gen, cfg.d_model, cfg.vocab_size, init="torch"),
         "layers": [
             {
@@ -112,7 +126,7 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _softmax_f32(scores: torch.Tensor) -> torch.Tensor:
-    return torch.softmax(scores.float(), dim=-1)
+    return torch.softmax(f32(scores), dim=-1)
 
 
 def attention(
@@ -130,13 +144,13 @@ def attention(
     q = _split_heads(linear(params["q"], q_in), nhead)
     k = _split_heads(linear(params["k"], kv_in), nhead)
     v = _split_heads(linear(params["v"], kv_in), nhead)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(dh)
+    scores = torch.matmul(f32(q), f32(k).transpose(-1, -2)) / math.sqrt(dh)
     if mask is not None:
         scores = scores.masked_fill(mask[None, None], NEG_INF)
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
-    w = _softmax_f32(scores).to(q.dtype)
-    out = torch.matmul(w.float(), v.float()).to(q_in.dtype)
+    w = cast(_softmax_f32(scores), q.dtype)
+    out = cast(torch.matmul(f32(w), f32(v)), q_in.dtype)
     return linear(params["out"], _merge_heads(out))
 
 
@@ -177,6 +191,20 @@ def init_self(
     ]
 
 
+def init_cache(
+    params: Params,
+    cfg: DecoderConfig,
+    memory: torch.Tensor,
+    memory_key_padding_mask: torch.Tensor,
+    max_steps: int,
+) -> tuple[list[torch.Tensor], CrossContext]:
+    """``(init_self(...), init_cross(...))`` at the memory's batch, dtype
+    and device."""
+    ctx = init_cross(params, cfg, memory, memory_key_padding_mask)
+    cache = init_self(cfg, memory.shape[0], max_steps, memory.dtype, memory.device)
+    return cache, ctx
+
+
 def reorder_cache(cache: list[torch.Tensor], parent: torch.Tensor) -> list[torch.Tensor]:
     """Gather the rows by per-clip beam parents.
 
@@ -215,8 +243,8 @@ def decode_step(
     dtype = ctx.cross_k.dtype
 
     x = embedding(params["emb"], token_ids, dtype=dtype) * math.sqrt(cfg.d_model)
-    pos = torch.from_numpy(sinusoidal_positions(step + 1, cfg.d_model)[step])
-    x = (x + pos.to(x.device, dtype))[:, None, :]  # (B, 1, D)
+    pos = position_table(x.device, cfg.d_model, cfg.max_len)[step]
+    x = (x + cast(pos, dtype))[:, None, :]  # (B, 1, D)
     invalid = torch.arange(max_steps, device=x.device) > step  # (L,)
 
     for i, layer in enumerate(params["layers"]):
@@ -232,22 +260,31 @@ def decode_step(
         buf = cache[i]
         buf[:, 0, :, step] = k_new[:, :, 0]
         buf[:, 1, :, step] = v_new[:, :, 0]
-        scores = torch.matmul(q.float(), buf[:, 0].float().transpose(-1, -2)) / math.sqrt(dh)
-        w = _softmax_f32(scores.masked_fill(invalid, NEG_INF)).to(q.dtype)
-        sa_out = torch.matmul(w.float(), buf[:, 1].float()).to(x.dtype)
+        scores = torch.matmul(f32(q), f32(buf[:, 0]).transpose(-1, -2)) / math.sqrt(dh)
+        w = cast(_softmax_f32(scores.masked_fill(invalid, NEG_INF)), q.dtype)
+        sa_out = cast(torch.matmul(f32(w), f32(buf[:, 1])), x.dtype)
         x = layer_norm(layer["norm1"], x + linear(sa["out"], _merge_heads(sa_out)), LN_EPS)
 
         ca = layer["cross_attn"]
         qc = _split_heads(linear(ca["q"], x), cfg.nhead)  # (B·beam, H, 1, dh)
         qb = qc[:, :, 0, :].reshape(b_ctx, beams, cfg.nhead, dh)
-        scores = torch.einsum("bkhd,bhmd->bkhm", qb.float(), ctx.cross_k[i].float()) / math.sqrt(dh)
+        scores = torch.einsum("bkhd,bhmd->bkhm", f32(qb), f32(ctx.cross_k[i])) / math.sqrt(dh)
         scores = scores.masked_fill(ctx.memory_pad[:, None, None, :], NEG_INF)
-        w = _softmax_f32(scores).to(qc.dtype)
-        ca_out = torch.einsum("bkhm,bhmd->bkhd", w.float(), ctx.cross_v[i].float())
-        ca_out = ca_out.reshape(b, cfg.nhead, 1, dh).to(x.dtype)
+        w = cast(_softmax_f32(scores), qc.dtype)
+        ca_out = torch.einsum("bkhm,bhmd->bkhd", f32(w), f32(ctx.cross_v[i]))
+        ca_out = cast(ca_out.reshape(b, cfg.nhead, 1, dh), x.dtype)
         x = layer_norm(layer["norm2"], x + linear(ca["out"], _merge_heads(ca_out)), LN_EPS)
 
         ff = linear(layer["linear2"], gelu(linear(layer["linear1"], x)))
         x = layer_norm(layer["norm3"], x + ff, LN_EPS)
 
-    return linear(params["classifier"], x[:, 0, :]).float()
+    return f32(linear(params["classifier"], x[:, 0, :]))
+
+
+def count_params(params: Any) -> int:
+    """The number of scalars in a parameter tree of tensors or arrays."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(np.prod(params.shape))

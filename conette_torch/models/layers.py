@@ -104,21 +104,31 @@ def conv2d_init(
 
 
 # ------------------------------------------------------------------- layers
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``, and no operation at all where ``t`` has that dtype,
+    so that a traced or exported program holds no cast that does nothing."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
+def f32(t: torch.Tensor) -> torch.Tensor:
+    return cast(t, torch.float32)
+
+
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     """``x @ W + b`` with f32 accumulation and f32 bias, cast to ``x.dtype``."""
-    w = params["weight"].to(x.dtype).float()
-    y = torch.matmul(x.float(), w) + params["bias"].float()
-    return y.to(x.dtype)
+    w = f32(cast(params["weight"], x.dtype))
+    y = torch.matmul(f32(x), w) + f32(params["bias"])
+    return cast(y, x.dtype)
 
 
 def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis, computed in float32."""
-    x32 = x.float()
+    x32 = f32(x)
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * params["weight"].float() + params["bias"].float()
-    return y.to(x.dtype)
+    y = y * f32(params["weight"]) + f32(params["bias"])
+    return cast(y, x.dtype)
 
 
 def batch_norm_inference(
@@ -156,7 +166,17 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def embedding_init(
+    gen: torch.Generator, vocab_size: int, dim: int, padding_idx: int | None = None
+) -> Params:
+    """N(0, 1) embedding table, the ``padding_idx`` row zero."""
+    weight = torch.randn((vocab_size, dim), generator=gen)
+    if padding_idx is not None:
+        weight[padding_idx] = 0.0
+    return {"weight": weight}
+
+
 def embedding(
     params: Params, ids: torch.Tensor, dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
-    return params["weight"].to(dtype)[ids]
+    return cast(params["weight"], dtype)[ids]

@@ -3,7 +3,9 @@
 Counterpart of ``conette_tpu/ops/frontend.py``: the reference's
 Spectrogram + LogmelFilterBank pair (sr 32000, n_fft 1024, hop 320, 224 mels,
 fmin 50, fmax 14000, ref 1.0, amin 1e-10, top_db None), as windowed-DFT
-matmul → square-add → mel matmul → log10.
+matmul → square-add → mel matmul → log10. The DFT basis and the mel
+filterbank are uploaded once for each (cfg, device, dtype) and kept on
+the device (:func:`mel_matrix_tensor`, ``ops/stft.py::basis_tensor``).
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import torch
 
 from conette_torch.ops.mel import mel_filterbank
 from conette_torch.ops.stft import power_spectrogram
+from conette_torch.weights import device_constant
 
-__all__ = ["LogMelConfig", "logmel_spectrogram", "DEFAULT_LOGMEL"]
+__all__ = ["LogMelConfig", "logmel_spectrogram", "mel_matrix_tensor", "DEFAULT_LOGMEL"]
 
 
 class LogMelConfig:
@@ -72,6 +75,14 @@ def _mel_matrix(cfg: LogMelConfig) -> np.ndarray:
     return mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
 
 
+@lru_cache(maxsize=16)
+def mel_matrix_tensor(cfg: LogMelConfig, device: torch.device,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (n_freqs, n_mels) filterbank rounded to ``dtype`` and held as
+    f32 on ``device``, built once for each key."""
+    return device_constant(_mel_matrix(cfg), device, dtype)
+
+
 def logmel_spectrogram(
     x: torch.Tensor,
     cfg: LogMelConfig = DEFAULT_LOGMEL,
@@ -79,7 +90,7 @@ def logmel_spectrogram(
 ) -> torch.Tensor:
     """(B, T) waveform → (B, n_frames, n_mels) float32 log-mel spectrogram."""
     power = power_spectrogram(x, cfg.n_fft, cfg.hop_length, compute_dtype=compute_dtype)
-    fb = torch.from_numpy(_mel_matrix(cfg)).to(power.device)
+    fb = mel_matrix_tensor(cfg, power.device)
     mel = torch.matmul(power, fb)
     log_mel = 10.0 * torch.log10(torch.clamp_min(mel, cfg.amin))
     log_mel = log_mel - 10.0 * np.log10(max(cfg.amin, cfg.ref))

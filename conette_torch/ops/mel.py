@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["hz_to_mel", "mel_to_hz", "mel_filterbank"]
+__all__ = ["hz_to_mel", "mel_to_hz", "mel_filterbank", "power_to_db"]
 
 # Slaney scale constants: linear below 1 kHz, logarithmic above.
 _F_SP = 200.0 / 3.0
@@ -78,3 +78,15 @@ def mel_filterbank(
     weights *= enorm[:, None]
 
     return weights.T.astype(dtype)
+
+
+def power_to_db(
+    power: np.ndarray, ref: float = 1.0, amin: float = 1e-10, top_db: float | None = None
+) -> np.ndarray:
+    """Reference log-mel compression (``LogmelFilterBank`` semantics with
+    ref=1.0, amin=1e-10, top_db=None): ``10*log10(clamp(power, amin))``."""
+    log_spec = 10.0 * np.log10(np.maximum(amin, power))
+    log_spec -= 10.0 * np.log10(np.maximum(amin, ref))
+    if top_db is not None:
+        log_spec = np.maximum(log_spec, log_spec.max() - top_db)
+    return log_spec

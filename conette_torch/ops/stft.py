@@ -4,6 +4,8 @@ Counterpart of ``conette_tpu/ops/stft.py``: the reference's
 ``torchlibrosa.stft.Spectrogram`` (n_fft 1024, hop 320, periodic Hann
 window, center=True, reflect padding, power 2), computed as
 ``frames (B, T, n_fft) @ basis (n_fft, 2·n_freqs)`` followed by re² + im².
+The basis is uploaded once for each (n_fft, device, dtype) and kept there
+(:func:`basis_tensor`), so a call copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["hann_window", "dft_basis", "frame_signal", "power_spectrogram"]
+from conette_torch.weights import device_constant
+
+__all__ = [
+    "hann_window", "dft_basis", "basis_tensor", "num_frames", "frame_signal", "power_spectrogram",
+]
 
 
 def hann_window(win_length: int, dtype: np.dtype = np.float32) -> np.ndarray:
@@ -37,6 +43,18 @@ def dft_basis(n_fft: int, dtype: str = "float32") -> np.ndarray:
     return basis.astype(dtype)
 
 
+@lru_cache(maxsize=16)
+def basis_tensor(n_fft: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`dft_basis` rounded to ``dtype`` and held as f32 on ``device``,
+    built once for each key."""
+    return device_constant(dft_basis(n_fft), device, dtype)
+
+
+def num_frames(n_samples: int, n_fft: int, hop_length: int) -> int:
+    """Frame count with center padding: 1 + n_samples // hop."""
+    return 1 + n_samples // hop_length
+
+
 def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
     """(B, T) waveform → (B, 1 + T // hop, n_fft) frames, center reflect pad."""
     pad = n_fft // 2
@@ -56,7 +74,7 @@ def power_spectrogram(
     float32 accumulation (exact products for bf16 operands)."""
     n_freqs = n_fft // 2 + 1
     frames = frame_signal(x, n_fft, hop_length).to(compute_dtype).float()
-    basis = torch.from_numpy(dft_basis(n_fft)).to(x.device, compute_dtype).float()
+    basis = basis_tensor(n_fft, x.device, compute_dtype)
     spec = torch.matmul(frames, basis)
     real, imag = spec[..., :n_freqs], spec[..., n_freqs:]
     return real * real + imag * imag

@@ -12,12 +12,21 @@ Counterpart of ``conette_tpu/serving.py`` (``caption_corpus``, ``warmup``):
    rounded to bf16, with each clip's own task; results come back in input
    order.
 
+On the card a batch is one captured program (``conette_torch/graphs.py``),
+one for each (batch, bucket length, beam, forbid mask present), cached on
+the model: the counterpart of the JAX package's ``caption_batch``, one
+``jax.jit`` program. ``warmup`` captures the programs of its buckets. The
+tokens of a batch are copied to pinned host memory behind its replay, and
+detokenized while the next batch's replay runs, as the JAX package
+drains the previous batch while the next one is dispatched.
+
 Sharding batches over a device mesh (the JAX ``mesh`` argument and
 ``make_sharded_caption_fn``) comes with the port's parallelism slice.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from dataclasses import dataclass
 from typing import Any, Sequence
@@ -89,9 +98,8 @@ def caption_corpus(
 
     cfg = model.model_cfg
     beam = beam_size if beam_size is not None else cfg.beam_size
-    dev = model.device
 
-    def bos_for(chunk: list[int]) -> torch.Tensor:
+    def bos_for(chunk: list[int]) -> np.ndarray:
         chunk_tasks = [tasks[i] for i in chunk]
         chunk_tasks += [chunk_tasks[0]] * (batch_size - len(chunk_tasks))
         datasets = [t.split("_")[0] for t in chunk_tasks]
@@ -102,9 +110,22 @@ def caption_corpus(
             ids = tasks_to_bos_ids(cfg, model.task_token_ids, datasets)
         else:
             ids = np.full((batch_size,), cfg.bos_id, np.int32)
-        return torch.from_numpy(ids).to(dev)
+        return ids
 
     results: dict[int, CaptionResult] = {}
+    pending: list[tuple[list[int], Any]] = []
+
+    def drain(item: tuple[list[int], Any]) -> None:
+        chunk, (done, preds_h, lprobs_h) = item
+        if done is not None:
+            done.synchronize()
+        preds, lprobs = preds_h.numpy(), lprobs_h.numpy()
+        for row, i in enumerate(chunk):
+            results[i] = CaptionResult(
+                fname=paths[i], caption=model._decode_pred(preds[row]),
+                lprob=float(lprobs[row]), task=tasks[i],
+            )
+
     for blen, idxs in sorted(buckets.items()):
         for start in range(0, len(idxs), batch_size):
             chunk = idxs[start : start + batch_size]
@@ -115,26 +136,54 @@ def caption_corpus(
                 m = min(int(wl[0]), blen)
                 wav[row, :m] = w[0, :m]
                 lens[row] = m
-            with torch.inference_mode():
-                outs = convnext_apply(
-                    model.encoder_params, torch.from_numpy(wav).to(dev),
-                    torch.from_numpy(lens).to(dev), compute_dtype=torch.bfloat16,
-                )
-                memory, pad_mask = encode_audio(
-                    model.params, cfg, outs["frame_embs"].transpose(1, 2), outs["frame_embs_lens"]
-                )
-                res = forward_generate(
-                    model.params, cfg, memory.to(torch.bfloat16), pad_mask, bos_for(chunk),
-                    beam_size=beam, forbid_rep_mask=model.forbid_rep_mask,
-                )
-            preds = res.best_preds.to(torch.int32).cpu().numpy()
-            lprobs = res.best_avg_lprobs.float().cpu().numpy()
-            for row, i in enumerate(chunk):
-                results[i] = CaptionResult(
-                    fname=paths[i], caption=model._decode_pred(preds[row]),
-                    lprob=float(lprobs[row]), task=tasks[i],
-                )
+            pending.append((chunk, caption_batch(model, wav, lens, bos_for(chunk), beam)))
+            # detokenize the previous batch while this one runs on the card
+            if len(pending) > 1:
+                drain(pending.pop(0))
+    for item in pending:
+        drain(item)
     return [results[i] for i in range(n)]
+
+
+def caption_batch(model: CoNeTTEModel, wav: np.ndarray, lens: np.ndarray, bos_ids: np.ndarray,
+                  beam: int) -> tuple[torch.cuda.Event | None, torch.Tensor, torch.Tensor]:
+    """One batch of ``caption_corpus``: (B, S) waveforms, (B,) lengths and
+    (B,) BOS ids → (an event that marks the copy to the host, or None on
+    the CPU; (B, max_pred_size) int32 best tokens; (B,) f32 lprobs), the two
+    in pinned host memory on the card. The batch is queued, not waited on."""
+    dev = model.device
+    forbid = model.forbid_rep_mask
+    key = ("corpus", *wav.shape, beam, forbid is not None)
+    fn = functools.partial(_caption_batch_eager, model, beam=beam)
+    inputs = (wav, np.asarray(lens, np.int64), np.asarray(bos_ids, np.int64))
+    inputs += (forbid,) if forbid is not None else ()
+    with torch.inference_mode():
+        preds, lprobs = model.graphs.run(key, fn, inputs, dev)
+        if dev.type != "cuda":
+            return None, preds.to(torch.int32), lprobs.float()
+        preds_h = torch.empty(preds.shape, dtype=torch.int32, pin_memory=True)
+        lprobs_h = torch.empty(lprobs.shape, dtype=torch.float32, pin_memory=True)
+        preds_h.copy_(preds, non_blocking=True)
+        lprobs_h.copy_(lprobs, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    return done, preds_h, lprobs_h
+
+
+def _caption_batch_eager(model: CoNeTTEModel, wav: torch.Tensor, lens: torch.Tensor,
+                         bos_ids: torch.Tensor, forbid: torch.Tensor | None = None, *,
+                         beam: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 encoder, the projection and beam search over bf16 memory."""
+    cfg = model.model_cfg
+    outs = convnext_apply(model.encoder_params, wav, lens, compute_dtype=torch.bfloat16)
+    memory, pad_mask = encode_audio(
+        model.params, cfg, outs["frame_embs"].transpose(1, 2), outs["frame_embs_lens"]
+    )
+    res = forward_generate(
+        model.params, cfg, memory.to(torch.bfloat16), pad_mask, bos_ids,
+        beam_size=beam, forbid_rep_mask=forbid,
+    )
+    return res.best_preds.to(torch.int32), res.best_avg_lprobs.float()
 
 
 def warmup(
@@ -143,12 +192,19 @@ def warmup(
     batch_size: int = 32,
     beam_size: int | None = None,
 ) -> None:
-    """Run ``model.forward`` once for each length bucket on low noise, so
-    that the kernel build and the libraries' first use fall before live
-    traffic."""
+    """Run ``model.forward`` once for each length bucket on low noise, and
+    capture ``caption_corpus``'s program of each bucket, so that the
+    kernel build, the libraries' first use and the captures fall before
+    live traffic."""
     rng = np.random.default_rng(0)
     sr = model.preprocessor.target_sr
+    cfg = model.model_cfg
+    beam = beam_size if beam_size is not None else cfg.beam_size
+    bos = np.full((batch_size,), model.task_token_ids.get(model.default_task, cfg.bos_id))
     for secs in bucket_seconds:
         wav = rng.standard_normal((batch_size, secs * sr)).astype(np.float32) * 0.01
         model.forward(wav, sr=sr, task=model.default_task, beam_size=beam_size)
-        pylog.info(f"warmup: ran the {secs} s bucket (batch {batch_size})")
+        done, _, _ = caption_batch(model, wav, np.full((batch_size,), secs * sr), bos, beam)
+        if done is not None:
+            done.synchronize()
+        pylog.info(f"warmup: ran and captured the {secs} s bucket (batch {batch_size})")

@@ -18,7 +18,21 @@ import torch
 
 from conette_torch.huggingface.convert import load_params_npz, save_params_npz
 
-__all__ = ["map_tree", "to_torch", "to_numpy", "load_tree", "save_tree"]
+__all__ = ["map_tree", "to_torch", "to_numpy", "load_tree", "save_tree", "device_constant"]
+
+
+def device_constant(array: np.ndarray, device: torch.device, dtype: torch.dtype | None = None
+                    ) -> torch.Tensor:
+    """``array`` as an f32 tensor on ``device``, rounded to ``dtype`` first
+    where given, for a cache of device constants: built as a real tensor
+    outside inference mode even while ``torch.export`` traces with fake
+    tensors, so eager calls, CUDA graph capture and export (which keeps
+    it as a constant of the program) can all share it."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily(), torch.inference_mode(False):
+        t = torch.from_numpy(array).to(device, dtype or torch.float32)
+        return t.float()
 
 
 def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:

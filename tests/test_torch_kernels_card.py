@@ -4,7 +4,10 @@ block kernel at two ragged shapes, the seam kernel at batch 8 and 1, at the
 1 s corpus bucket's seams and at every slice count, both pack kernels
 against their plain layouts, and the log-mel kernel at both compute types
 from the shortest input to batch 8 x 10 s (with the same bits over three
-launches, and the silent floor at bf16).
+launches, and the silent floor at bf16); the block and seam kernels give
+the same bits on memory that the caching allocator hands over poisoned
+with 0xFF bytes as on zeroed memory; and each kernel's custom op replayed
+from a CUDA graph gives the bits of its wrapper.
 
 A CUDA kernel has no CPU mode, so these tests skip without an sm_90
 device. This file imports neither JAX nor conette_tpu, so it also runs
@@ -281,3 +284,103 @@ def test_kernels_reject_what_they_do_not_take(h100):
         fused_downsample(torch.zeros((1, 8, 8, 96), device=h100), torch.ones(96, device=h100),
                          torch.zeros(96, device=h100), torch.zeros((2, 2, 96, 192), device=h100),
                          torch.zeros(192, device=h100))
+
+
+def _recycle(device, byte: int) -> None:
+    """Fill a large and many small cached blocks of the allocator with
+    ``byte`` and free them, so that the next allocations of a call get that
+    memory (0xFF is NaN in bf16 and f32)."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    blocks = [torch.empty(1 << 30, dtype=torch.uint8, device=device)]
+    blocks += [torch.empty(1 << 20, dtype=torch.uint8, device=device) for _ in range(64)]
+    for blk in blocks:
+        blk.fill_(byte)
+    del blocks
+    torch.cuda.synchronize(device)
+
+
+def _same_on_recycled_memory(call):
+    outs = []
+    for byte in (0x00, 0xFF, 0x00, 0xFF):
+        _recycle(torch.device("cuda"), byte)
+        outs.append(call().clone())
+        torch.cuda.synchronize()
+    return all(torch.equal(outs[0].view(torch.int16), o.view(torch.int16)) for o in outs[1:])
+
+
+def test_block_gives_the_same_bits_on_poisoned_memory(h100):
+    """The shape split 44 ways at which one chip run saw two launches differ."""
+    rng = np.random.default_rng(7)
+    c = 768
+    args = (
+        _randn(rng, (7, 7, 1, c), 0.1, h100), _randn(rng, (c,), 0.1, h100),
+        _randn(rng, (c,), 0.1, h100, shift=1.0), _randn(rng, (c,), 0.1, h100),
+        _randn(rng, (c, 4 * c), 0.05, h100), _randn(rng, (4 * c,), 0.05, h100),
+        _randn(rng, (4 * c, c), 0.05, h100), _randn(rng, (c,), 0.05, h100),
+        _randn(rng, (c,), 0.1, h100),
+    )
+    x = _randn(rng, (8, 3, 7, c), 0.5, h100, torch.bfloat16)
+    assert _same_on_recycled_memory(lambda: fused_convnext_block(x, *args, eps=EPS))
+
+
+def test_seam_gives_the_same_bits_on_poisoned_memory(h100):
+    """The shape at which one card-test run saw two launches differ."""
+    rng = np.random.default_rng(8)
+    seam = _seam_args(rng, 192, h100)
+    x = _randn(rng, (2, 126, 28, 192), 0.5, h100, torch.bfloat16)
+    assert _same_on_recycled_memory(lambda: fused_downsample(x, *seam, eps=EPS))
+
+
+def _replayed(call):
+    """``call`` captured in a CUDA graph (after a warm-up on a side stream)
+    and replayed twice; returns the output of the last replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def test_block_op_replayed_from_a_graph_gives_the_wrappers_bits(h100):
+    rng = np.random.default_rng(9)
+    c = 384
+    args = (
+        _randn(rng, (7, 7, 1, c), 0.1, h100), _randn(rng, (c,), 0.1, h100),
+        _randn(rng, (c,), 0.1, h100, shift=1.0), _randn(rng, (c,), 0.1, h100),
+        _randn(rng, (c, 4 * c), 0.05, h100), _randn(rng, (4 * c,), 0.05, h100),
+        _randn(rng, (4 * c, c), 0.05, h100), _randn(rng, (c,), 0.05, h100),
+        _randn(rng, (c,), 0.1, h100),
+    )
+    x = _randn(rng, (2, 63, 14, c), 0.5, h100, torch.bfloat16)
+    want = fused_convnext_block(x, *args, eps=EPS)
+    got = _replayed(lambda: torch.ops.conette_torch.convnext_block(x, *args, EPS))
+    assert torch.equal(want.view(torch.int16), got.view(torch.int16))
+
+
+def test_seam_op_replayed_from_a_graph_gives_the_wrappers_bits(h100):
+    rng = np.random.default_rng(10)
+    seam = _seam_args(rng, 96, h100)
+    x = _randn(rng, (2, 252, 56, 96), 0.5, h100, torch.bfloat16)
+    want = fused_downsample(x, *seam, eps=EPS)
+    got = _replayed(lambda: torch.ops.conette_torch.downsample(x, *seam, EPS))
+    assert torch.equal(want.view(torch.int16), got.view(torch.int16))
+
+
+def test_logmel_op_replayed_from_a_graph_gives_the_wrappers_bits(h100):
+    rng = np.random.default_rng(11)
+    x = _randn(rng, (2, 320_000), 0.1, h100)
+    scale, shift = _randn(rng, (224,), 0.1, h100, shift=1.0), _randn(rng, (224,), 1.0, h100)
+    cfg = DEFAULT_LOGMEL
+    want = fused_logmel(x, bn_scale=scale, bn_shift=shift, compute_dtype=torch.bfloat16)
+    got = _replayed(lambda: torch.ops.conette_torch.logmel(
+        x, scale, shift, cfg.sample_rate, cfg.n_fft, cfg.hop_length, cfg.n_mels, cfg.fmin,
+        cfg.fmax, cfg.ref, cfg.amin, torch.bfloat16))
+    assert torch.equal(want.view(torch.int32), got.view(torch.int32))
