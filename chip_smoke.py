@@ -57,7 +57,28 @@ Phases (any failure exits non-zero):
    1e-5, and its profile must show 1 + 18 + 3 custom-op calls and 18 + 3
    block and seam kernels (its log-mel kernel rows are printed: the trace
    loses them at random late in the run);
-6. print a details JSON line, the card line, the ``kernels`` JSON line
+6. train: pack a corpus with ``conette_torch/data/hdf.py`` (4 x 512 train
+   items of (31, 768) f32 embeddings, 128 val and 128 test items with 5
+   captions each, 3..20 of ``fit_tokenizer``'s 4000 words a caption);
+   hold one training step on the card against the same step on the CPU
+   (batch 512, dropout 0, a fixed mixup (λ, pairing), no augmentation:
+   loss within 1e-5, gradients and post-step parameters within 1e-4, each
+   relative to its largest value, the elements whose gradient sign is
+   rounding held to 2·lr apart); time the production step (CUDA events
+   around 10 steps after a warm-up; samples/s, peak memory) and check that
+   the loss falls over 8 steps on one repeated batch; run ``main_train``
+   with ``expt=hp_clotho_v2`` (pl/conette's d_model 256 x 6 layers, 8
+   heads, ff 2048, dropout 0.2 / 0.5, mixup 0.4, label smoothing 0.2;
+   AdamW lr 5e-4, wd 2.0 with the split, cos_decay, clip 1, SpecAugmentRatio
+   on the embeddings; bsize 512), 2 epochs, checkpoints on the validation
+   loss, validation and test at beam 3; then load the run directory with
+   ``CoNeTTEModel.from_pretrained(run_dir, device="cuda")`` and the bf16
+   encoder, caption 8 x 10 s clips (2 + 36 + 6 wrapper launches as the
+   first request captures, 18 + 3 block and seam kernels in a profiled
+   replay, its log-mel call held as phase 5 holds it: the eager bf16
+   encoder on its waveforms launches 1 + 18 + 3 and gives its clip
+   probabilities; the decode replay held against eager calls);
+7. print a details JSON line, the card line, the ``kernels`` JSON line
    and, last, the device JSON line.
 """
 
@@ -69,6 +90,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -457,14 +479,19 @@ def check_logmel(dev, gen) -> list[dict]:
     return records
 
 
+def corpus_words(rng: np.random.Generator, n_words: int = 4000) -> list[str]:
+    """``n_words`` distinct generated words, drawn from ``rng``."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, size=rng.integers(4, 9))) for _ in range(2 * n_words)})
+    return words[:n_words]
+
+
 def fit_tokenizer(n_words: int = 4000):
     """A tokenizer fitted on a generated corpus of ``n_words`` distinct words."""
     from conette_torch.tokenization import AACTokenizer
 
     rng = np.random.default_rng(0)
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    words = sorted({"".join(rng.choice(letters, size=rng.integers(4, 9))) for _ in range(2 * n_words)})
-    words = words[:n_words]
+    words = corpus_words(rng, n_words)
     sentences = [" ".join(words[i:i + 10]) for i in range(0, n_words, 10)]
     sentences += [" ".join(rng.choice(words, size=12)) for _ in range(200)]
     tok = AACTokenizer()
@@ -1100,6 +1127,297 @@ def breakdown(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
     return {k: statistics.median(v[1:]) for k, v in times.items()}
 
 
+# phase 6: the training corpus (10 s clips: 31 frames of 768), as packs of
+# ``conette_torch/data/hdf.py``, and the run's settings
+TRAIN_BATCHES, EVAL_ITEMS, BSIZE, FRAMES = 4, 128, 512, 31
+STEP_TOL = {"loss": 1e-5, "grads": 1e-4, "params": 1e-4}
+
+
+def pack_corpus(root: str) -> dict:
+    """Train (4 x 512 items, one caption each drawn per epoch from 5), val
+    and test (128 items, 5 captions each) packs of random (31, 768) f32
+    embeddings and captions of 3..20 of ``fit_tokenizer``'s 4000 words."""
+    from conette_torch.data.datasets import DictDataset
+    from conette_torch.data.hdf import pack_to_hdf
+
+    words = np.asarray(corpus_words(np.random.default_rng(0)))
+    out = {}
+    for subset, n, seed in (("dev", TRAIN_BATCHES * BSIZE, 11), ("val", EVAL_ITEMS, 12),
+                            ("eval", EVAL_ITEMS, 13)):
+        rng = np.random.default_rng(seed)
+        caps = [[" ".join(rng.choice(words, size=rng.integers(3, 21))) for _ in range(5)]
+                for _ in range(n)]
+        ds = DictDataset({
+            "audio": list(rng.standard_normal((n, FRAMES, 768), dtype=np.float32)),
+            "audio_lens": [FRAMES] * n, "captions": caps, "dataset": ["clotho"] * n,
+            "subset": [subset] * n, "source": [None] * n,
+            "fname": [f"{subset}_{i}.wav" for i in range(n)],
+        })
+        out[subset] = pack_to_hdf(ds, os.path.join(root, f"clotho_{subset}_emb.hdf"))
+    return out
+
+
+def train_batch(model_cfg, rng: np.random.Generator, b: int = BSIZE) -> dict:
+    """A batch as the datamodule gives it: (B, 31, 768) embeddings, lengths,
+    and captions (a task token, 3..20 words, EOS, PAD) in the model's vocab."""
+    length = 22
+    caps = np.full((b, length), model_cfg.pad_id, np.int64)
+    for i in range(b):
+        n = int(rng.integers(3, 21))
+        caps[i, 0] = model_cfg.bos_id
+        caps[i, 1:n + 1] = rng.integers(10, model_cfg.vocab_size, n)
+        caps[i, n + 1] = model_cfg.eos_id
+    return {"audio": rng.standard_normal((b, FRAMES, 768), dtype=np.float32),
+            "audio_lens": np.full(b, FRAMES, np.int64), "captions": caps}
+
+
+def step_card_vs_cpu(model_cfg) -> dict:
+    """One training step of the port on the card and on the CPU, from the
+    same weights and batch, dropout 0, a fixed (λ, perm), no augmentation,
+    clip 1 and AdamW at lr 5e-4, wd 2.0 with the split: the loss, the
+    largest gradient difference and the largest post-step parameter
+    difference, each relative to the largest value of its kind.
+
+    Adam's first step moves an element by about ``lr·sign(g)``, so where
+    the two devices' f32 gradients differ by as much as the gradient itself
+    (its sign is rounding: the attention key biases, whose gradient is zero
+    in exact arithmetic, and elements of the projection's gradient, a sum
+    over 512 x 31 rows of random embeddings that cancels), the step is not
+    determined at f32 on either device. Those elements are counted and held
+    to 2·lr apart; the parameter ratio is taken over the rest."""
+    import torch
+
+    from conette_torch.models.conette import conette_init
+    from conette_torch.train import optim, step
+    from conette_torch.train.objective import training_loss
+    from conette_torch.weights import named_leaves, to_torch
+
+    cfg = model_cfg._replace(proj_dropout_p=0.0, decoder_dropout_p=0.0)
+    init = conette_init(torch.Generator().manual_seed(21), cfg)
+    batch = train_batch(cfg, np.random.default_rng(22))
+    perm = np.random.default_rng(23).permutation(BSIZE)
+    perm = perm[(np.argsort(perm) + 1) % BSIZE]  # no fixed point
+    lbd, lr = 0.7, 5e-4
+    out = {}
+    for name, dev in (("cuda", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+        params = to_torch(init, dev)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        override = (lbd, torch.from_numpy(perm).to(dev))
+
+        def loss_fn(p, b, gen):
+            return training_loss(p, cfg, b, gen, mixup_override=override)
+
+        opt, _ = optim.get_optimizer(params, lr=lr, weight_decay=2.0, sched_name="none")
+        state = step.init_train_state(params, opt)
+        leaves = [t for _, t in named_leaves(params)]
+        grads = torch.autograd.grad(loss_fn(params, tb, None), leaves)
+        state, metrics = step.make_train_step(cfg, grad_clip_norm=1.0, loss_fn=loss_fn)(state, tb, None)
+        out[name] = {"loss": metrics["train/loss"].item(),
+                     "grads": {k: g.cpu() for (k, _), g in zip(named_leaves(params), grads)},
+                     "params": {k: t.detach().cpu() for k, t in named_leaves(state.params)}}
+    card, cpu = out["cuda"], out["cpu"]
+    gdiff = {k: (card["grads"][k] - cpu["grads"][k]).abs() for k in cpu["grads"]}
+    pdiff = {k: (card["params"][k] - cpu["params"][k]).abs() for k in cpu["params"]}
+    sign_rounding = {k: (gdiff[k] > 0) & (gdiff[k] >= cpu["grads"][k].abs()) for k in gdiff}
+    rounding = {k: int(m.sum()) for k, m in sign_rounding.items() if m.any()}
+    res = {
+        "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+        "loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        "grads": max(float(d.max()) for d in gdiff.values())
+        / max(float(g.abs().max()) for g in cpu["grads"].values()),
+        "params": max(float(torch.where(sign_rounding[k], 0.0, pdiff[k]).max()) for k in pdiff)
+        / max(float(p.abs().max()) for p in cpu["params"].values()),
+        "sign_rounding_elements": rounding,
+        "sign_rounding_max_abs_diff": max((float(pdiff[k][sign_rounding[k]].max()) for k in rounding),
+                                          default=0.0),
+        "largest_leaf_grad_rel": sorted(((float(gdiff[k].max() / cpu["grads"][k].abs().max().clamp_min(1e-30)), k)
+                                         for k in gdiff), reverse=True)[:3],
+    }
+    print(f"  one step, card vs cpu (batch {BSIZE}, dropout 0, λ {lbd}, fixed pairing): loss "
+          f"{card['loss']:.7f} vs {cpu['loss']:.7f} (rel {res['loss']:.2e}, tol {STEP_TOL['loss']}), "
+          f"grads rel {res['grads']:.2e} (tol {STEP_TOL['grads']}), post-step params rel "
+          f"{res['params']:.2e} (tol {STEP_TOL['params']}) over all but "
+          f"{sum(rounding.values())} elements whose gradient sign is rounding {rounding}: those "
+          f"{res['sign_rounding_max_abs_diff']:.2e} apart (tol {2 * lr}); leaves with the largest "
+          f"gradient difference to their own largest value: {res['largest_leaf_grad_rel']}", flush=True)
+    for k, tol in STEP_TOL.items():
+        assert res[k] <= tol, (k, res[k], tol)
+    assert res["sign_rounding_max_abs_diff"] <= 2 * lr, res
+    return res
+
+
+def step_timing(model_cfg, aug_fn) -> dict:
+    """The production step at full width on the card (dropout, mixup with
+    drawn λ and pairing, SpecAugmentRatio on the embeddings, clip 1, AdamW):
+    CUDA events around each of 10 steps after a warm-up step, the median,
+    samples/s and the peak device memory; then 8 steps on one repeated
+    batch with the optimizer live, whose loss must fall."""
+    import torch
+
+    from conette_torch.models.conette import conette_init
+    from conette_torch.train import optim, step
+    from conette_torch.weights import to_torch
+
+    dev = torch.device("cuda")
+    params = to_torch(conette_init(torch.Generator().manual_seed(31), model_cfg), dev)
+    opt, _ = optim.get_optimizer(params, lr=5e-4, weight_decay=2.0, sched_name="cos_decay",
+                                 sched_n_steps=2)
+    state = step.init_train_state(params, opt)
+    fn = step.make_train_step(model_cfg, grad_clip_norm=1.0)
+    gen, aug_gen = torch.Generator(dev).manual_seed(32), torch.Generator(dev).manual_seed(33)
+    rng = np.random.default_rng(34)
+    batches = []
+    for _ in range(11):
+        b = {k: torch.from_numpy(v).pin_memory() for k, v in train_batch(model_cfg, rng).items()}
+        batches.append(b)
+
+    def one(b):
+        tb = {k: v.to(dev, non_blocking=True) for k, v in b.items()}
+        tb["audio"] = aug_fn(aug_gen, tb["audio"], time_valid=tb["audio_lens"])
+        return fn(state, tb, gen)[1]
+
+    one(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, issue = [], []
+    for b in batches[1:]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        one(b)
+        issue.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(e) for a, e in events]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    med = statistics.median(times)
+    # one step under the profiler: its kernels' summed device time against
+    # the host's time to issue a step (the step's own Python and dispatch)
+    prof = profiled(lambda: one(batches[1]))
+    losses = [float(one(batches[0])["train/loss"]) for _ in range(8)]
+    print(f"  training step at batch {BSIZE} (production settings): median {med:.2f} ms over "
+          f"{len(times)} steps (min {min(times):.2f}, max {max(times):.2f}), "
+          f"{BSIZE / med * 1e3:.0f} samples/s, peak device memory {peak:.0f} MiB; the host issues a "
+          f"step in {statistics.median(issue):.2f} ms (median); a profiled step: "
+          f"{prof['device_ms']:.2f} ms of kernels in {prof['wall_ms']:.2f} ms, top {prof['top']}; "
+          f"{threading.active_count()} threads alive; loss on one repeated batch over 8 steps: "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    assert losses[-1] < losses[0] and np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+    return {"step_ms": times, "median_step_ms": med, "samples_per_s": BSIZE / med * 1e3,
+            "issue_ms": issue, "profiled_step_device_ms": prof["device_ms"],
+            "profiled_step_wall_ms": prof["wall_ms"], "profiled_step_top": prof["top"],
+            "threads": threading.active_count(), "peak_memory_mib": peak,
+            "repeated_batch_losses": losses}
+
+
+def training_phase(work_dir: str) -> dict:
+    """Phase 6: ``conette-train`` at full width on one card, then captioning
+    from its run directory through the three kernels."""
+    import torch
+
+    from conette_torch.huggingface.model import CoNeTTEModel
+    from conette_torch.metrics.functional import bert_score, fense
+    from conette_torch.models.conette import ConetteConfig
+    from conette_torch.train.main import _spec_aug_fn, main_train
+
+    t0 = time.perf_counter()
+    hdf_root = os.path.join(work_dir, "hdf")
+    packs = pack_corpus(hdf_root)
+    pack_s = time.perf_counter() - t0
+    print(f"  packed {TRAIN_BATCHES * BSIZE} train and 2 x {EVAL_ITEMS} eval items in "
+          f"{pack_s:.1f} s ({sum(os.path.getsize(p) for p in packs.values()) / 1e6:.0f} MB)",
+          flush=True)
+    from conette_torch.config import load_config
+
+    argv = ["expt=hp_clotho_v2", "ckpts.monitor=val/loss", "ckpts.fallback_monitor=val/loss",
+            "ckpts.mode=min", "trainer.max_epochs=2", f"dm.hdf_root={hdf_root}",
+            "dm.train_hdfs=[clotho_dev_emb.hdf]", "dm.val_hdfs=[clotho_val_emb.hdf]",
+            "dm.test_hdfs=[clotho_eval_emb.hdf]", f"log_root={os.path.join(work_dir, 'logs')}"]
+    cfg = load_config("train", argv)
+    pl = cfg["pl"]
+    print(f"  config: d_model {pl['d_model']} x {pl['num_decoder_layers']} layers, {pl['nhead']} heads, "
+          f"ff {pl['dim_feedforward']}, dropout {pl['decoder_dropout_p']}/{pl.get('proj_dropout_p', 0.5)}, "
+          f"mixup {pl['mixup_alpha']}, label smoothing {pl['label_smoothing']}, "
+          f"{pl['optim_name']} lr {pl['lr']} wd {pl['weight_decay']} {pl['sched_name']}, clip "
+          f"{cfg['trainer']['grad_clip_norm']}, bsize {cfg['dm']['bsize']}, beam {pl['beam_size']}, "
+          f"train transform {cfg['audio_t']['train'].get('_target_')}", flush=True)
+    assert cfg["dm"]["bsize"] == BSIZE and pl["d_model"] == 256 and pl["num_decoder_layers"] == 6
+
+    vocab = 4000 + 4 + len(pl["task_names"])
+    model_cfg = ConetteConfig(vocab_size=vocab, task_names=tuple(pl["task_names"]))
+    card_vs_cpu = step_card_vs_cpu(model_cfg)
+    timing = step_timing(model_cfg, _spec_aug_fn(cfg))
+
+    for cache, key in ((bert_score._CACHE, "embed"), (fense._CACHE, "model")):
+        cache[key] = None  # no model weights for these metrics here: never fetch them
+    t0 = time.perf_counter()
+    out = main_train(argv)
+    train_s = time.perf_counter() - t0
+    fit = out["fit"]
+    run_dir = out["run_dir"]
+    best = os.path.join(run_dir, "checkpoints", "best")
+    artifacts = sorted(os.listdir(run_dir))
+    wait_share = fit.batch_wait_s / sum(fit.epoch_train_s)
+    fit_rate = fit.global_step * BSIZE / sum(fit.epoch_train_s)
+    print(f"  main_train: {train_s:.1f} s wall, {fit.global_step} steps ({fit_rate:.0f} samples/s "
+          "over the training passes), epochs "
+          f"{[round(x, 2) for x in fit.epoch_s]} s (training passes "
+          f"{[round(x, 2) for x in fit.epoch_train_s]} s), waiting on the host's batch "
+          f"{fit.batch_wait_s:.2f} s ({wait_share:.3f} of the passes); best val/loss "
+          f"{out['best']:.4f}; test {next(iter(out['test'].values()))['cider_d']:.4f} CIDEr-D; "
+          f"run dir {artifacts}", flush=True)
+    assert fit.global_step == 2 * TRAIN_BATCHES and np.isfinite(out["best"])
+    assert os.path.isfile(os.path.join(best, "params.npz")), best
+    for name in ("tokenizer.json", "vocab.csv", "hparams.yaml", "metrics.yaml", "endfile.txt"):
+        assert name in artifacts, (name, artifacts)
+
+    # captioning from the run directory: the first request captures the
+    # graphs (2 + 36 + 6 wrapper launches); a replayed request runs 18 block
+    # and 3 seam kernels in its profile. Late in a run the trace drops the
+    # log-mel kernel's row at random (PERF.md §7), so its call is held as
+    # phase 5 holds it: the eager bf16 encoder on the same waveforms runs
+    # 1 + 18 + 3 wrapper launches and gives the replay's clip probabilities
+    from conette_torch.models.convnext import convnext_apply
+
+    reset_launches()
+    model = CoNeTTEModel.from_pretrained(run_dir, device="cuda", compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(35)
+    tasks = ["clotho"] * BATCH
+    first = model(make_clips(rng, BATCH, 10.0, 44100), sr=44100, task=tasks)
+    launches = count_launches()
+    clips = make_clips(rng, BATCH, 10.0, 44100)
+    replayed = []
+    replay = profiled(lambda: replayed.append(model(clips, sr=44100, task=tasks)))
+    wav, lens = model.preprocessor.load_resample(clips, 44100)
+    reset_launches()
+    with torch.inference_mode():
+        eager = convnext_apply(model.encoder_params, torch.from_numpy(wav).cuda(),
+                               torch.from_numpy(lens).cuda(), compute_dtype=torch.bfloat16)
+    eager_launches = count_launches()
+    clip_err = float(np.abs(eager["clipwise_output"].float().cpu().numpy()
+                            - replayed[0]["tags_probs"]).max())
+    versus = graphs_vs_eager(model, make_clips(rng, BATCH, 10.0, 44100), tasks)
+    print(f"  captions from the run directory: {first['cands'][:2]}; wrapper launches {launches}, "
+          f"a replayed request's kernel calls {replay['calls']} (log-mel rows "
+          f"{replay['logmel_rows']}); the eager bf16 encoder on its waveforms: wrapper launches "
+          f"{eager_launches}, clip probabilities max abs diff {clip_err:.2e}", flush=True)
+    assert launches == {"logmel": 2, "convnext_block": 36, "downsample": 6}, launches
+    assert {k: replay["calls"][k] for k in ("convnext_block", "downsample")} == {
+        "convnext_block": 18, "downsample": 3}, replay["calls"]
+    assert replay["calls"]["logmel"] in (0, 1), replay["calls"]
+    assert eager_launches == {"logmel": 1, "convnext_block": 18, "downsample": 3}, eager_launches
+    assert clip_err <= 1e-6, clip_err
+    assert len(first["cands"]) == BATCH and np.isfinite(first["lprobs"]).all()
+    return dict(pack_s=pack_s, card_vs_cpu=card_vs_cpu, timing=timing, main_train_s=train_s,
+                epoch_s=fit.epoch_s, epoch_train_s=fit.epoch_train_s, batch_wait_s=fit.batch_wait_s,
+                fit_samples_per_s=fit_rate,
+                batch_wait_share=wait_share, best_val_loss=out["best"], test=out["test"],
+                artifacts=artifacts, launches=launches, replay_calls=replay["calls"],
+                eager_encoder_launches=eager_launches, replay_vs_eager_clip_abs_err=clip_err,
+                graphs_vs_eager=versus, cands=first["cands"])
+
+
 def kernel_line(records: list[dict], launches: dict) -> dict:
     meta = {
         "logmel": ("conette_torch/csrc/logmel.cu", "conette_tpu/ops/pallas/logmel.py:81"),
@@ -1178,6 +1496,10 @@ def main() -> int:
         served = serve_corpus(model, work)
         print("phase 5: export at batch 8 x 10 s, save, load, replay", flush=True)
         exported = export_phase(model, work)
+        del model
+        print(f"phase 6: training at batch {BSIZE} (pl/conette, expt/hp_clotho_v2), 2 epochs, "
+              "then captioning from the run directory", flush=True)
+        trained = training_phase(work)
 
     line = kernel_line(records, summary["launches"])
     for k in line["kernels"]:
@@ -1187,11 +1509,19 @@ def main() -> int:
         k["serving_launches"] = served["launches"][k["name"]]
         k["serving_replay_calls"] = served["replay_calls"][k["name"]]
         k["export_launches"] = exported["launches"][k["name"]]
+        # phase 6: the capture's wrapper launches, the eager encoder's on the
+        # replayed waveforms, and the replay's kernel rows (log-mel's may be
+        # missing from the trace, PERF.md §7)
+        k["training_launches"] = trained["launches"][k["name"]]
+        k["training_eager_launches"] = trained["eager_encoder_launches"][k["name"]]
+        k["training_replay_calls"] = trained["replay_calls"][k["name"]]
         if min(k["launches"], k["replay_calls_per_request"], k["serving_launches"],
-               k["serving_replay_calls"], k["export_launches"]) <= 0:
+               k["serving_replay_calls"], k["export_launches"], k["training_launches"],
+               k["training_eager_launches"]) <= 0:
             raise AssertionError(f"{k['name']} never launched on a path")
     print(json.dumps({"card": smi, "records": records, "main_path": summary,
-                      "serving": served, "export": exported}), flush=True)
+                      "serving": served, "export": exported, "training": trained},
+                     default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ Counterpart of ``conette_tpu/huggingface/model.py`` (reference
   weights from a directory holding ``config.json`` and ``params.npz``, as
   either package's ``save_pretrained`` writes it, or ``config.json`` and
   the reference's torch checkpoint (``model.safetensors`` or
-  ``pytorch_model.bin``, converted by ``huggingface/convert.py``);
+  ``pytorch_model.bin``, converted by ``huggingface/convert.py``), or from
+  a ``conette-train`` run directory (``checkpoints/best``) of either
+  package;
 - ``model(x, sr=..., task=..., beam_size=...)`` → ``CoNeTTEOutput`` with
   ``cands / preds / lprobs / mult_* / tasks / tags / tags_probs``:
   preprocess → AudioSet tags at threshold 0.3 → task → beam search (or
@@ -350,13 +352,9 @@ class CoNeTTEModel:
                 f"Model directory {path!r} not found (conette_torch loads local "
                 "directories only; download the snapshot first)."
             )
-        if not os.path.isfile(os.path.join(path, "config.json")) and os.path.isdir(
-            os.path.join(path, "checkpoints", "best")
-        ):
-            raise NotImplementedError(
-                "Loading a train-run directory comes with the training slice "
-                "of conette_torch; export it with save_pretrained first."
-            )
+        best_dir = os.path.join(path, "checkpoints", "best")
+        if not os.path.isfile(os.path.join(path, "config.json")) and os.path.isdir(best_dir):
+            return cls._from_train_run(best_dir, config, device=device, verbose=verbose, **kwargs)
         if config is None:
             config = CoNeTTEConfig.from_pretrained(path)
 
@@ -393,6 +391,39 @@ class CoNeTTEModel:
             verbose=verbose,
             **kwargs,
         )
+
+    @classmethod
+    def _from_train_run(cls, best_dir: str, config: CoNeTTEConfig | None, **kwargs: Any
+                        ) -> "CoNeTTEModel":
+        """A ``conette-train`` run directory's best checkpoint (either
+        package's): the trained decoder and projection, its tokenizer, and
+        the configuration from its ``meta.json``. The ConvNeXt encoder is
+        not part of a training run (it trains on precomputed embeddings), so
+        it is initialised from the seed, as in the JAX package."""
+        from conette_torch.train.checkpoint import load_checkpoint
+
+        loaded = load_checkpoint(best_dir)
+        tokenizer = loaded.get("tokenizer")
+        if config is None:
+            mc = loaded["meta"].get("model_cfg", {})
+            config = CoNeTTEConfig(
+                tokenizer_state=tokenizer.get_txt_state() if tokenizer else None,
+                **{
+                    k: mc[k]
+                    for k in (
+                        "task_mode", "task_names", "label_smoothing",
+                        "mixup_alpha", "min_pred_size", "max_pred_size",
+                        "beam_size", "nhead", "d_model", "num_decoder_layers",
+                        "decoder_dropout_p", "dim_feedforward",
+                    )
+                    if k in mc
+                },
+            )
+        pylog.warning(
+            "Loading a train-run checkpoint: the decoder weights are trained, the "
+            "ConvNeXt encoder is initialised from the seed unless converted separately."
+        )
+        return cls(config, model_params=loaded["params"], tokenizer=tokenizer, **kwargs)
 
 
 def _load_torch_state(path: str) -> dict[str, Any] | None:

@@ -2,10 +2,11 @@
 
 Counterpart of ``conette_tpu/models/conette.py`` (reference ``CoNeTTEPLM``):
 the model takes 768-d frame embeddings, projects them 768→256 with
-Linear+ReLU (dropout is off at inference), and decodes with the
-transformer decoder; ``<bos_{task}>`` special tokens are appended to the
-vocabulary per task; the forbid-repetition mask marks every non-stopword
-vocabulary entry.
+Dropout+Linear+ReLU+Dropout (the dropouts act only in training), and
+decodes with the transformer decoder, by teacher forcing in training
+(:func:`forward_forcing`) and by beam or greedy search at inference;
+``<bos_{task}>`` special tokens are appended to the vocabulary per task;
+the forbid-repetition mask marks every non-stopword vocabulary entry.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 
 from conette_torch.decoding.beam import BeamResult, beam_search
 from conette_torch.decoding.greedy import GreedyResult, greedy_search
-from conette_torch.models.decoder import DecoderConfig, Params, decoder_init
-from conette_torch.models.layers import linear, linear_init
+from conette_torch.models.decoder import DecoderConfig, Params, decoder_forward, decoder_init
+from conette_torch.models.layers import cast, dropout, linear, linear_init
 from conette_torch.tokenization import AACTokenizer
 from conette_torch.utils.stopwords import ENGLISH_STOPWORDS
 
@@ -121,10 +122,17 @@ def encode_audio(
     cfg: ConetteConfig,
     audio: torch.Tensor,
     audio_lens: torch.Tensor,
+    *,
+    deterministic: bool = True,
+    gen: torch.Generator | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Project (B, T, 768) frame embeddings → (B, T, d_model) memory and a
-    (B, T) pad mask (True = PAD)."""
-    x = torch.relu(linear(params["projection"], audio))
+    (B, T) pad mask (True = PAD). In training (``deterministic=False``)
+    dropout at ``cfg.proj_dropout_p`` acts before and after the projection,
+    drawn from ``gen``."""
+    x = dropout(gen, audio, cfg.proj_dropout_p, deterministic)
+    x = torch.relu(linear(params["projection"], x))
+    x = dropout(gen, x, cfg.proj_dropout_p, deterministic)
     t = x.shape[1]
     pad_mask = torch.arange(t, device=x.device)[None, :] >= audio_lens.to(x.device)[:, None]
     return x, pad_mask
@@ -152,6 +160,56 @@ def tasks_to_bos_ids(
     else:
         raise ValueError(f"Invalid task mode {cfg.task_mode!r}.")
     return np.asarray([task_token_ids[name] for name in names], np.int32)
+
+
+def forward_forcing(
+    params: Params,
+    cfg: ConetteConfig,
+    memory: torch.Tensor,
+    memory_pad_mask: torch.Tensor,
+    caps_in: torch.Tensor,
+    *,
+    caps_in_pad_mask: torch.Tensor | None = None,
+    deterministic: bool = True,
+    gen: torch.Generator | None = None,
+    caps_in_embedded: bool = False,
+) -> torch.Tensor:
+    """Teacher forcing → (B, vocab, L) logits (the reference's layout)."""
+    if caps_in_pad_mask is None and not caps_in_embedded:
+        caps_in_pad_mask = caps_in == cfg.pad_id
+    logits = decoder_forward(
+        params["decoder"],
+        cfg.decoder_config(),
+        memory,
+        caps_in,
+        memory_key_padding_mask=memory_pad_mask,
+        caps_in_pad_mask=caps_in_pad_mask,
+        deterministic=deterministic,
+        gen=gen,
+        caps_in_embedded=caps_in_embedded,
+    )
+    return logits.transpose(1, 2)
+
+
+def embed_tokens(
+    params: Params,
+    ids: torch.Tensor,
+    dtype: torch.dtype = torch.float32,
+    pad_id: int | None = None,
+) -> torch.Tensor:
+    """Token embedding lookup (before the sqrt(d_model) scale), for the
+    mixup training path.
+
+    :param pad_id: when given, the PAD row passes no gradient back, as in
+        ``nn.Embedding(padding_idx=pad)``. Under mixup ``emb[pad]`` leaks
+        into the live positions of the mixing partner, so without this the
+        PAD row would move in training.
+    """
+    weight = params["decoder"]["emb"]["weight"]
+    if pad_id is not None:
+        is_pad = torch.arange(weight.shape[0], device=weight.device)[:, None] == pad_id
+        weight = torch.where(is_pad, weight.detach(), weight)
+    return cast(weight, dtype)[ids]
 
 
 def forward_generate(

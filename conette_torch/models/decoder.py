@@ -31,6 +31,7 @@ import torch
 from conette_torch.models.layers import (
     Params,
     cast,
+    dropout,
     embedding,
     embedding_init,
     f32,
@@ -137,9 +138,14 @@ def attention(
     *,
     mask: torch.Tensor | None = None,
     key_padding_mask: torch.Tensor | None = None,
+    dropout_p: float = 0.0,
+    deterministic: bool = True,
+    gen: torch.Generator | None = None,
 ) -> torch.Tensor:
     """Multi-head attention. ``mask`` (Lq, Lk) bool, True = blocked;
-    ``key_padding_mask`` (B, Lk) bool, True = PAD."""
+    ``key_padding_mask`` (B, Lk) bool, True = PAD. In training
+    (``deterministic=False``) the attention probabilities take dropout at
+    ``dropout_p``, drawn from ``gen``."""
     dh = q_in.shape[-1] // nhead
     q = _split_heads(linear(params["q"], q_in), nhead)
     k = _split_heads(linear(params["k"], kv_in), nhead)
@@ -150,8 +156,59 @@ def attention(
     if key_padding_mask is not None:
         scores = scores.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
     w = cast(_softmax_f32(scores), q.dtype)
+    w = dropout(gen, w, dropout_p, deterministic)
     out = cast(torch.matmul(f32(w), f32(v)), q_in.dtype)
     return linear(params["out"], _merge_heads(out))
+
+
+# ------------------------------------------------------------- full forward
+def decoder_forward(
+    params: Params,
+    cfg: DecoderConfig,
+    memory: torch.Tensor,
+    caps_in: torch.Tensor,
+    *,
+    memory_key_padding_mask: torch.Tensor | None = None,
+    caps_in_pad_mask: torch.Tensor | None = None,
+    causal: bool = True,
+    deterministic: bool = True,
+    gen: torch.Generator | None = None,
+    caps_in_embedded: bool = False,
+) -> torch.Tensor:
+    """Teacher-forcing forward over a whole caption (the training pass).
+
+    :param memory: (B, T_mem, D) projected frame embeddings.
+    :param caps_in: (B, L) token ids, or (B, L, D) embeddings when
+        ``caps_in_embedded`` (the mixup path).
+    :param deterministic: False in training: dropout at ``cfg.dropout_p``
+        on the scaled embeddings and, in each layer, on the self- and
+        cross-attention probabilities and outputs, the hidden layer of the
+        feed-forward block and its output, each draw from ``gen``.
+    :returns: (B, L, vocab) f32 logits.
+    """
+    x = caps_in if caps_in_embedded else embedding(params["emb"], caps_in, dtype=memory.dtype)
+    length = x.shape[1]
+    x = x * math.sqrt(cfg.d_model)
+    pos = position_table(x.device, cfg.d_model, cfg.max_len)[:length]
+    x = dropout(gen, x + cast(pos, x.dtype)[None], cfg.dropout_p, deterministic)
+    p = cfg.dropout_p
+
+    sq_mask = None
+    if causal:
+        sq_mask = torch.ones((length, length), dtype=torch.bool, device=x.device).triu(1)
+    for layer in params["layers"]:
+        sa = attention(layer["self_attn"], x, x, cfg.nhead, mask=sq_mask,
+                       key_padding_mask=caps_in_pad_mask, dropout_p=p,
+                       deterministic=deterministic, gen=gen)
+        x = layer_norm(layer["norm1"], x + dropout(gen, sa, p, deterministic), LN_EPS)
+        ca = attention(layer["cross_attn"], x, memory, cfg.nhead,
+                       key_padding_mask=memory_key_padding_mask, dropout_p=p,
+                       deterministic=deterministic, gen=gen)
+        x = layer_norm(layer["norm2"], x + dropout(gen, ca, p, deterministic), LN_EPS)
+        hidden = dropout(gen, gelu(linear(layer["linear1"], x)), p, deterministic)
+        ff = linear(layer["linear2"], hidden)
+        x = layer_norm(layer["norm3"], x + dropout(gen, ff, p, deterministic), LN_EPS)
+    return f32(linear(params["classifier"], x))
 
 
 # ------------------------------------------------------------- cached decode

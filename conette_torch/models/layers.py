@@ -180,3 +180,60 @@ def embedding(
     params: Params, ids: torch.Tensor, dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
     return cast(params["weight"], dtype)[ids]
+
+
+# ------------------------------------------------------------- training only
+def batch_norm_train(
+    params: Params, x: torch.Tensor, axis: int = -1, eps: float = 1e-5, momentum: float = 0.1
+) -> tuple[torch.Tensor, Params]:
+    """Training-mode BN: batch statistics, and the updated running
+    statistics returned (not written), as torch ``BatchNorm2d.train()``
+    computes them."""
+    axis = axis % x.ndim
+    reduce_dims = tuple(i for i in range(x.ndim) if i != axis)
+    x32 = f32(x)
+    mean = x32.mean(dim=reduce_dims)
+    var = x32.var(dim=reduce_dims, unbiased=False)
+    n = math.prod(x.shape[i] for i in reduce_dims)
+    unbiased_var = var * (n / max(n - 1, 1))
+    new_stats = {
+        "weight": params["weight"],
+        "bias": params["bias"],
+        "running_mean": (1 - momentum) * params["running_mean"] + momentum * mean,
+        "running_var": (1 - momentum) * params["running_var"] + momentum * unbiased_var,
+    }
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    y = (x32 - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + eps)
+    y = y * f32(params["weight"]).reshape(shape) + f32(params["bias"]).reshape(shape)
+    return cast(y, x.dtype), new_stats
+
+
+def _keep_mask(gen: torch.Generator | None, shape, keep: float, device) -> torch.Tensor:
+    if gen is None:
+        raise ValueError("a training-mode dropout needs a torch.Generator")
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def dropout(
+    gen: torch.Generator | None, x: torch.Tensor, rate: float, deterministic: bool
+) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate``
+    (a draw from ``gen``, on ``x``'s device) and scaled by ``1 / (1 - rate)``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(gen, x.shape, keep, x.device)
+    return cast(torch.where(mask, x / keep, 0.0), x.dtype)
+
+
+def drop_path(
+    gen: torch.Generator | None, x: torch.Tensor, rate: float, deterministic: bool
+) -> torch.Tensor:
+    """Stochastic depth on the batch axis (reference ``DropPath``): a whole
+    row kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(gen, (x.shape[0],) + (1,) * (x.ndim - 1), keep, x.device)
+    return cast(torch.where(mask, x / keep, 0.0), x.dtype)

@@ -18,7 +18,8 @@ import torch
 
 from conette_torch.huggingface.convert import load_params_npz, save_params_npz
 
-__all__ = ["map_tree", "to_torch", "to_numpy", "load_tree", "save_tree", "device_constant"]
+__all__ = ["map_tree", "to_torch", "to_numpy", "load_tree", "save_tree", "device_constant",
+           "named_leaves"]
 
 
 def device_constant(array: np.ndarray, device: torch.device, dtype: torch.dtype | None = None
@@ -74,3 +75,14 @@ def load_tree(path: str, device: torch.device | str = "cpu") -> Any:
 def save_tree(path: str, tree: Any) -> None:
     """Write a tensor tree as a ``params.npz`` both packages read."""
     save_params_npz(path, to_numpy(tree))
+
+
+def named_leaves(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(name, leaf)`` of every leaf in ``flatten_pytree``'s order and with
+    its names (``"decoder/layers/0/norm1/weight"``), as ``params.npz`` keys
+    them."""
+    if isinstance(tree, Mapping):
+        return [kv for k, v in tree.items() for kv in named_leaves(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in named_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]

@@ -96,11 +96,15 @@ def test_predict_cli_on_cpu(saved, tmp_path):
 
 
 def test_unported_loaders_raise(tmp_path):
-    """The train-run loader is still to port and raises, as a missing
-    directory does; FLAC input, once unported, now decodes."""
+    """Loaders once unported: a train-run directory now loads (its loading is
+    held in ``tests/test_torch_train_run.py``), and one whose best
+    checkpoint holds no weights raises ``FileNotFoundError``, as the JAX
+    package's does and as a missing directory does; FLAC input decodes."""
     (tmp_path / "run" / "checkpoints" / "best").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="train-run"):
+    with pytest.raises(FileNotFoundError, match="params.npz"):
         CoNeTTEModel.from_pretrained(str(tmp_path / "run"), device="cpu")
+    with pytest.raises(FileNotFoundError, match="params.npz"):
+        JaxModel.from_pretrained(str(tmp_path / "run"))
     with pytest.raises(FileNotFoundError):
         CoNeTTEModel.from_pretrained(str(tmp_path / "missing"), device="cpu")
     flac = tmp_path / "a.flac"

@@ -31,7 +31,13 @@ def test_port_imports_neither_jax_nor_conette_tpu():
         "import conette_torch.kernels.convnext_block, conette_torch.kernels.logmel\n"
         "import conette_torch.serving, conette_torch.huggingface.convert\n"
         "import conette_torch.utils.flac, conette_torch.utils.lossy\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'conette_tpu'))]\n"
+        "import conette_torch.train.main, conette_torch.train.augment, conette_torch.train.step\n"
+        "import conette_torch.train.loop, conette_torch.train.eval_run, conette_torch.train.checkpoint\n"
+        "import conette_torch.data.datamodule, conette_torch.data.hdf, conette_torch.metrics\n"
+        "import conette_torch.config, conette_torch.parallel.distributed, conette_torch.utils.csum\n"
+        "import conette_torch.utils.misc, conette_torch.utils.disk_cache, conette_torch.utils.dcase\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'optax', 'h5py')\n"
+        "       or m.startswith(('jax.', 'optax.', 'conette_tpu'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
