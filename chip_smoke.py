@@ -78,7 +78,23 @@ Phases (any failure exits non-zero):
    replay, its log-mel call held as phase 5 holds it: the eager bf16
    encoder on its waveforms launches 1 + 18 + 3 and gives its clip
    probabilities; the decode replay held against eager calls);
-7. print a details JSON line, the card line, the ``kernels`` JSON line
+7. prepare, host audio and the PANN encoders: write a local corpus (96
+   WAV clips of 1-29.5 s at 44.1, 48 and 32 kHz, mono and stereo, and 32
+   FLAC clips of 1-2 s; dev, val and test subsets with a captions CSV
+   each); build the native audio loader and hold ``load_batch`` against
+   the numpy route on 32 of the WAVs (2e-5); pack each subset with
+   ``conette_torch.prepare.main_prepare([..., "--debug"])`` on the default
+   device (the full-width ConvNeXt-Tiny at f32 through the preprocessor's
+   captured encoder programs, batch 8; no kernel launch, the f32 route is
+   the plain one), timing the host's decode and resample apart from the
+   encoder calls; read the packs back and hold 4 dev rows against the f32
+   encoder on the CPU over the same batch (1e-4); run ``main_train`` on
+   the packs for 1 epoch of 2 steps (``dm.bsize`` 32) and caption 2 files
+   from its run directory on the card; run Cnn10, Cnn14 and
+   Cnn14_DecisionLevelAtt at full width on 8 x 10 s clips (time a call)
+   and hold each against the CPU on one clip (1e-4 of the largest value);
+   run ``get_frontend`` for all six names on one clip, card against CPU;
+8. print a details JSON line, the card line, the ``kernels`` JSON line
    and, last, the device JSON line.
 """
 
@@ -1418,6 +1434,309 @@ def training_phase(work_dir: str) -> dict:
                 graphs_vs_eager=versus, cands=first["cands"])
 
 
+# phase 7: a local corpus for conette-prepare: 96 WAV and 32 FLAC files in
+# the dev, val and test subsets (a CSV of 5 captions a file for each); WAV
+# clips of 1-29.5 s at 44.1, 48 and 32 kHz, half of them stereo; FLAC
+# clips of 1-2 s, mono (the FLAC decoder is pure Python: ~0.25 s of host
+# time a second of audio on the card's machine, read twice a pack, PERF.md
+# §5); dev holds two batches of dm.bsize 32
+PREP_SUBSETS = (("dev", 48, 16), ("val", 24, 8), ("test", 24, 8))  # (subset, WAV, FLAC)
+PREP_RATES = (44_100, 48_000, 32_000)
+PREP_BATCH, PREP_TRAIN_BSIZE = 8, 32
+PREP_ROWS_CHECKED = 4
+# f32 on the card (TF32 off) against f32 on the CPU: summation order only;
+# the packed rows to the debug check's absolute 1e-4; the PANN encoders and
+# the encoder frontends to 1e-4 of their largest value; the dB frontends
+# (spectrogram, gammatonegram) to 0.05 dB: a DFT bin that holds only the
+# noise floor sums 1024 terms carrying tones up to ~50 dB louder, whose f32
+# rounding (~sqrt(1024)·6e-8 of their sum) is up to ~2e-3 of the bin's
+# amplitude, ~0.02 dB (0.0054 dB measured at the worst bin of a 10 s clip)
+PREP_ROW_ATOL = 1e-4
+PANN_REL_TOL = 1e-4
+DB_ATOL = 0.05
+PANN_NAMES = ("cnn10", "cnn14", "cnn14_att")
+
+
+def write_prepare_corpus(root: str) -> dict:
+    """Phase 7's corpus: the audio under ``root/audio``, a captions CSV for
+    each subset; returns {subset: (csv path, [file names])}."""
+    import csv
+
+    from conette_torch.utils.audio_io import save_wav
+    from conette_torch.utils.flac import save_flac
+
+    rng = np.random.default_rng(71)
+    words = np.asarray(corpus_words(np.random.default_rng(0)))
+    audio_dir = os.path.join(root, "audio")
+    os.makedirs(audio_dir, exist_ok=True)
+    out = {}
+    for subset, n_wav, n_flac in PREP_SUBSETS:
+        rows, names = [], []
+        for i in range(n_wav + n_flac):
+            flac = i >= n_wav
+            sr = PREP_RATES[i % 3]
+            secs = float(rng.uniform(1.0, 2.0) if flac else rng.uniform(1.0, 29.5))
+            x = make_clips(rng, 2 if (not flac and (i // 3) % 2) else 1, secs, sr)
+            name = f"{subset}_{i:03d}.{'flac' if flac else 'wav'}"
+            (save_flac if flac else save_wav)(os.path.join(audio_dir, name),
+                                              np.stack(x) if len(x) > 1 else x[0], sr)
+            names.append(name)
+            rows += [{"file_name": name,
+                      "caption": " ".join(rng.choice(words, size=rng.integers(3, 21)))}
+                     for _ in range(5)]
+        csv_path = os.path.join(root, f"{subset}.csv")
+        with open(csv_path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=["file_name", "caption"])
+            w.writeheader()
+            w.writerows(rows)
+        out[subset] = (csv_path, names)
+    return out
+
+
+class MethodTimer:
+    """Host seconds spent inside each wrapped function while active
+    (``encode`` ends in a synchronise, so it holds its device time too)."""
+
+    def __init__(self, targets: dict) -> None:
+        self.targets = targets  # {label: (owner, attribute, synchronise)}
+        self.seconds = dict.fromkeys(targets, 0.0)
+        self.saved = {}
+
+    def __enter__(self):
+        import torch
+
+        for label, (owner, attr, sync) in self.targets.items():
+            fn = getattr(owner, attr)
+            self.saved[label] = fn
+
+            def timed(*args, _fn=fn, _label=label, _sync=sync, **kwargs):
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                if _sync:
+                    torch.cuda.synchronize()
+                self.seconds[_label] += time.perf_counter() - t0
+                return out
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, attr, _) in self.targets.items():
+            setattr(owner, attr, self.saved[label])
+
+
+def native_loader_check(audio_dir: str, names: list[str]) -> dict:
+    """Build the native loader, then decode and resample 32 WAVs with
+    ``load_batch`` and with the numpy route (decode, resample, mean)."""
+    from conette_torch.native import loader
+    from conette_torch.ops.resample import resample_numpy
+    from conette_torch.utils.audio_io import load_audio
+
+    t0 = time.perf_counter()
+    path = loader.library_path()
+    loader.build(path)
+    loader.library()
+    build_s = time.perf_counter() - t0
+    paths = [os.path.join(audio_dir, n) for n in names if n.endswith(".wav")][:32]
+    t0 = time.perf_counter()
+    native = loader.load_batch(paths, 32_000)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = []
+    for p in paths:
+        wav, sr = load_audio(p)
+        plain.append(resample_numpy(wav, sr, 32_000).mean(axis=0))
+    numpy_s = time.perf_counter() - t0
+    kinds = sorted({(loader.wav_info(p)[0], loader.wav_info(p)[1]) for p in paths})
+    err = max(float(np.abs(a - b).max()) for a, b in zip(native, plain))
+    seconds = sum(len(a) for a in native) / 32_000
+    print(f"  native loader: built in {build_s:.2f} s ({path.name}); {len(paths)} WAVs "
+          f"({seconds:.0f} s of audio; (rate, channels) {kinds}) through load_batch in "
+          f"{native_s:.3f} s, through numpy in {numpy_s:.3f} s; max abs diff {err:.2e} "
+          f"(tol 2e-5)", flush=True)
+    assert len(kinds) == 6 and [len(a) for a in native] == [len(b) for b in plain]
+    assert err <= 2e-5, err
+    return dict(build_s=build_s, files=len(paths), audio_s=seconds, load_batch_s=native_s,
+                numpy_s=numpy_s, max_abs_err=err)
+
+
+def pann_check(dev) -> dict:
+    """Cnn10, Cnn14 and Cnn14_DecisionLevelAtt at full width on 8 x 10 s
+    clips on the card (median CUDA-event time of 5 calls), each held against
+    the CPU on the first clip."""
+    import torch
+
+    from conette_torch.models.pann import apply_pann_model, build_pann_model
+    from conette_torch.weights import to_torch
+
+    rng = np.random.default_rng(72)
+    wav = torch.from_numpy(np.stack(make_clips(rng, BATCH, 10.0, 32_000)))
+    lens = torch.full((BATCH,), wav.shape[1])
+    out = {}
+    for i, name in enumerate(PANN_NAMES):
+        tree, width = build_pann_model(name, torch.Generator().manual_seed(73 + i))
+        params = to_torch(tree, dev)
+        with torch.inference_mode():
+            def run():
+                return apply_pann_model(name, params, wav.to(dev), lens.to(dev))
+
+            ms = time_ms(run, runs=5)
+            card = run()
+            cpu = apply_pann_model(name, tree, wav[:1], lens[:1])
+        errs = {}
+        for k, want in cpu.items():
+            got = card[k][:1].cpu()
+            assert got.shape == want.shape, (name, k, got.shape, want.shape)
+            assert torch.isfinite(card[k].float()).all(), (name, k)
+            errs[k] = errors(want, got)[1] if want.is_floating_point() else float((got != want).sum())
+        print(f"  {name}: 8 x 10 s on the card {ms:.2f} ms a call; frame_embs "
+              f"{tuple(card['frame_embs'].shape)}; card vs CPU on one clip, max error relative "
+              f"to the largest value {({k: f'{v:.1e}' for k, v in errs.items()})} "
+              f"(tol {PANN_REL_TOL})", flush=True)
+        assert card["frame_embs"].shape[:2] == (BATCH, width)
+        assert max(errs.values()) <= PANN_REL_TOL, (name, errs)
+        out[name] = dict(ms=ms, rel_err=errs, frame_embs=list(card["frame_embs"].shape))
+    return out
+
+
+def frontends_check(dev) -> dict:
+    """``get_frontend`` for every name on one 10 s clip at 44.1 kHz, the
+    card against the CPU."""
+    from conette_torch.ops.frontend_factories import FRONTENDS, get_frontend
+
+    clip = make_clips(np.random.default_rng(74), 1, 10.0, 44_100)[0]
+    out = {}
+    for name in FRONTENDS:
+        fn_card, width = get_frontend(name, seed=3, device=dev)
+        fn_cpu, _ = get_frontend(name, seed=3, device="cpu")
+        t0 = time.perf_counter()
+        got = fn_card(clip, 44_100)
+        card_s = time.perf_counter() - t0
+        want = fn_cpu(clip, 44_100)
+        diff = float(np.abs(got - want).max())
+        db = name.endswith(("spectrogram", "gammatonegram"))
+        tol = DB_ATOL if db else PANN_REL_TOL * float(np.abs(want).max())
+        out[name] = dict(shape=list(got.shape), width=width, max_abs_err=diff, tol=tol,
+                         card_s=card_s)
+        assert got.shape == want.shape and got.shape[1] == width and np.isfinite(got).all()
+        assert diff <= tol, (name, diff, tol)
+    print("  get_frontend, card vs CPU on one 10 s clip: " + "; ".join(
+        f"{k.removeprefix('resample_mean_')} {tuple(v['shape'])} max abs diff "
+        f"{v['max_abs_err']:.1e} (tol {v['tol']:.1e})" for k, v in out.items()), flush=True)
+    return out
+
+
+def prepare_phase(work_dir: str) -> dict:
+    """Phase 7: the host audio loader, conette-prepare on a written corpus
+    (each subset packed by ``main_prepare`` with ``--debug`` on the default
+    device), the packs read back and held against the CPU encoder, a
+    training run on them and captions from its run directory, then the
+    PANN encoders and the frontend factories, card against CPU."""
+    import torch
+
+    from conette_torch.data.hdf import HDFDataset
+    from conette_torch.huggingface.model import CoNeTTEModel
+    from conette_torch.huggingface.preprocessor import CoNeTTEPreprocessor
+    from conette_torch.metrics.functional import bert_score, fense
+    from conette_torch.models.convnext import convnext_init
+    from conette_torch.prepare import ConvNeXtFrontend, main_prepare, scan_local_dataset
+    from conette_torch.train.main import main_train
+    from conette_torch.utils import audio_io
+
+    t0 = time.perf_counter()
+    corpus = write_prepare_corpus(work_dir)
+    audio_dir = os.path.join(work_dir, "audio")
+    write_s = time.perf_counter() - t0
+    print(f"  wrote {sum(len(n) for _, n in corpus.values())} files in {write_s:.1f} s", flush=True)
+    native = native_loader_check(audio_dir, corpus["dev"][1] + corpus["val"][1])
+
+    hdf_root = os.path.join(work_dir, "hdf")
+    packs, calls = {}, {}
+    reset_launches()
+    for subset, (csv_path, names) in corpus.items():
+        timer = MethodTimer({"decode": (audio_io, "load_audio", False),
+                             "resample": (CoNeTTEPreprocessor, "load_resample", False),
+                             "encode": (CoNeTTEPreprocessor, "encode", True)})
+        t0 = time.perf_counter()
+        with timer:
+            rc = main_prepare(["--audio_dir", audio_dir, "--captions_csv", csv_path,
+                               "--dataset", "clotho", "--subset", subset, "--out_dir", hdf_root,
+                               "--batch_size", str(PREP_BATCH), "--debug"])
+        wall = time.perf_counter() - t0
+        assert rc == 0, rc
+        packs[subset] = os.path.join(hdf_root, f"clotho_{subset}_resample_mean_convnext_ident.hdf")
+        host = wall - timer.seconds["encode"]
+        calls[subset] = dict(files=len(names), wall_s=wall, files_per_s=len(names) / wall,
+                             host_share=host / wall, **{f"{k}_s": v for k, v in timer.seconds.items()})
+        print(f"  main_prepare {subset}: {len(names)} files in {wall:.2f} s ({len(names) / wall:.1f} "
+              f"files/s), --debug check passed; host decode {timer.seconds['decode']:.2f} s, "
+              f"resample + pad {timer.seconds['resample']:.2f} s, encoder calls (captures "
+              f"included, synchronised) {timer.seconds['encode']:.2f} s: host share "
+              f"{host / wall:.3f}", flush=True)
+    prepare_launches = count_launches()
+    assert prepare_launches == dict.fromkeys(prepare_launches, 0), prepare_launches
+
+    # the packs read back, and the first rows against the f32 encoder on the
+    # CPU over the same batch of clips (the pack's first batch)
+    for subset, path in packs.items():
+        ds = HDFDataset(path)
+        csv_path, names = corpus[subset]
+        assert [ds.at(i, "fname") for i in range(len(ds))] == sorted(names)
+        for i in range(len(ds)):
+            a = ds.at(i, "audio")
+            assert a.shape == (ds.at(i, "audio_lens"), 768) and np.isfinite(a).all()
+            assert len(ds.at(i, "captions")) == 5 and ds.at(i, "subset") == subset
+    dev_ds = scan_local_dataset(audio_dir, corpus["dev"][0], "clotho", "dev")
+    t0 = time.perf_counter()
+    cpu_rows = ConvNeXtFrontend(device="cpu").encode_dataset_batched(
+        dev_ds, list(range(PREP_BATCH)), PREP_BATCH)[:PREP_ROWS_CHECKED]
+    cpu_s = time.perf_counter() - t0
+    packed = HDFDataset(packs["dev"])
+    row_err = max(float(np.abs(packed.at(i, "audio") - r).max()) for i, r in enumerate(cpu_rows))
+    print(f"  packs read back ({', '.join(f'{k} {len(HDFDataset(p))}' for k, p in packs.items())} "
+          f"rows, frames {[int(packed.at(i, 'audio_lens')) for i in range(PREP_ROWS_CHECKED)]} ...); "
+          f"{PREP_ROWS_CHECKED} dev rows against the f32 encoder on the CPU ({cpu_s:.1f} s): max abs "
+          f"diff {row_err:.2e} (tol {PREP_ROW_ATOL}); wrapper launches while packing "
+          f"{prepare_launches} (the f32 route is the plain one)", flush=True)
+    assert all(r.shape == packed.at(i, "audio").shape for i, r in enumerate(cpu_rows))
+    assert row_err <= PREP_ROW_ATOL, row_err
+
+    # conette-train on the packs, then captions from its run directory, with
+    # the encoder that packed them (prepare's, from seed 0)
+    for cache, key in ((bert_score._CACHE, "embed"), (fense._CACHE, "model")):
+        cache[key] = None  # no model weights for these metrics here: never fetch them
+    name = "clotho_{}_resample_mean_convnext_ident.hdf"
+    argv = ["expt=hp_clotho_v2", "ckpts.monitor=val/loss", "ckpts.fallback_monitor=val/loss",
+            "ckpts.mode=min", "trainer.max_epochs=1", f"dm.bsize={PREP_TRAIN_BSIZE}",
+            f"dm.hdf_root={hdf_root}", f"dm.train_hdfs=[{name.format('dev')}]",
+            f"dm.val_hdfs=[{name.format('val')}]", f"dm.test_hdfs=[{name.format('test')}]",
+            f"log_root={os.path.join(work_dir, 'logs')}"]
+    t0 = time.perf_counter()
+    out = main_train(argv)
+    train_s = time.perf_counter() - t0
+    fit = out["fit"]
+    assert fit.global_step == 2 and np.isfinite(out["best"]), (fit.global_step, out["best"])
+    model = CoNeTTEModel.from_pretrained(out["run_dir"], device="cuda",
+                                         encoder_params=convnext_init(torch.Generator().manual_seed(0)))
+    files = [os.path.join(audio_dir, n) for n in (corpus["test"][1][0], corpus["test"][1][-1])]
+    t0 = time.perf_counter()
+    captions = model(files)
+    caption_s = time.perf_counter() - t0
+    print(f"  main_train on the packs: {train_s:.1f} s, {fit.global_step} steps of "
+          f"{PREP_TRAIN_BSIZE}, best val/loss {out['best']:.4f}; captions of "
+          f"{[os.path.basename(f) for f in files]} from its run directory in {caption_s:.2f} s: "
+          f"{captions['cands']}", flush=True)
+    assert len(captions["cands"]) == 2 and np.isfinite(captions["lprobs"]).all()
+    del model
+
+    panns = pann_check(torch.device("cuda"))
+    frontends = frontends_check(torch.device("cuda"))
+    return dict(write_s=write_s, native=native, prepare=calls, prepare_launches=prepare_launches,
+                rows_checked=PREP_ROWS_CHECKED, row_max_abs_err=row_err, cpu_rows_s=cpu_s,
+                main_train_s=train_s, best_val_loss=out["best"], caption_s=caption_s,
+                cands=captions["cands"], pann=panns, frontends=frontends)
+
+
 def kernel_line(records: list[dict], launches: dict) -> dict:
     meta = {
         "logmel": ("conette_torch/csrc/logmel.cu", "conette_tpu/ops/pallas/logmel.py:81"),
@@ -1500,6 +1819,11 @@ def main() -> int:
         print(f"phase 6: training at batch {BSIZE} (pl/conette, expt/hp_clotho_v2), 2 epochs, "
               "then captioning from the run directory", flush=True)
         trained = training_phase(work)
+        print("phase 7: prepare, host audio and the PANN encoders", flush=True)
+        t0 = time.perf_counter()
+        prepared = prepare_phase(work)
+        prepared["phase_s"] = time.perf_counter() - t0
+        print(f"  phase 7 took {prepared['phase_s']:.1f} s", flush=True)
 
     line = kernel_line(records, summary["launches"])
     for k in line["kernels"]:
@@ -1515,12 +1839,15 @@ def main() -> int:
         k["training_launches"] = trained["launches"][k["name"]]
         k["training_eager_launches"] = trained["eager_encoder_launches"][k["name"]]
         k["training_replay_calls"] = trained["replay_calls"][k["name"]]
+        # phase 7: prepare's f32 encoder takes the plain route (asserted 0)
+        k["prepare_launches"] = prepared["prepare_launches"][k["name"]]
         if min(k["launches"], k["replay_calls_per_request"], k["serving_launches"],
                k["serving_replay_calls"], k["export_launches"], k["training_launches"],
                k["training_eager_launches"]) <= 0:
             raise AssertionError(f"{k['name']} never launched on a path")
     print(json.dumps({"card": smi, "records": records, "main_path": summary,
-                      "serving": served, "export": exported, "training": trained},
+                      "serving": served, "export": exported, "training": trained,
+                      "prepare": prepared},
                      default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)

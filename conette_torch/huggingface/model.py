@@ -157,7 +157,7 @@ class CoNeTTEModel:
         if model_params is None:
             model_params = conette_init(gen, self.model_cfg)
         self.preprocessor = CoNeTTEPreprocessor(
-            to_torch(encoder_params, self.device),
+            encoder_params,
             device=self.device,
             compute_dtype=compute_dtype,
         )

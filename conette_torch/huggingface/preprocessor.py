@@ -6,7 +6,9 @@ lists of either with per-item sample rates; resamples to 32 kHz on the host,
 averages channels, pads to a length bucket (or, with ``use_buckets=False``,
 to the longest clip) and stacks, then runs the encoder on the model's
 device, returning ``{"audio": (B, T, 768), "audio_shape": (B, 2),
-"clip_probs": (B, 527)}``.
+"clip_probs": (B, 527)}``. File paths are decoded, averaged and resampled
+by the native loader (``conette_torch/native``) on a pool of threads, as
+the JAX package does; arrays are resampled with numpy, then averaged.
 
 On a CUDA device the encoder is one CUDA graph for each padded length
 (at the compute dtype, and ``REQUEST_BATCH`` rows: a request is padded to
@@ -23,9 +25,10 @@ import numpy as np
 import torch
 
 from conette_torch.graphs import GraphCache
-from conette_torch.models.convnext import convnext_apply
+from conette_torch.models.convnext import convnext_apply, convnext_init
+from conette_torch.native import loader as native_loader
 from conette_torch.ops.resample import resample_numpy
-from conette_torch.utils.audio_io import load_audio
+from conette_torch.weights import to_torch
 
 TARGET_SR = 32_000
 FEAT_SIZE = 768
@@ -52,18 +55,23 @@ def bucket_length(n_samples: int, sr: int = TARGET_SR) -> int:
 
 class CoNeTTEPreprocessor:
     """Frozen audio tagger frontend over the ConvNeXt parameter tree
-    ``params`` (tensors on ``device``)."""
+    ``params`` (numpy arrays or tensors, moved to ``device``); without
+    ``params``, a random ConvNeXt-Tiny from ``convnext_init`` and a
+    ``torch.Generator`` seeded with ``seed``."""
 
     def __init__(
         self,
-        params: Any,
+        params: Any | None = None,
         *,
+        seed: int = 0,
         device: torch.device | str,
         compute_dtype: torch.dtype = torch.float32,
         use_buckets: bool = True,
     ) -> None:
-        self.params = params
+        if params is None:
+            params = convnext_init(torch.Generator().manual_seed(seed))
         self.device = torch.device(device)
+        self.params = to_torch(params, self.device)
         self.compute_dtype = compute_dtype
         self.use_buckets = use_buckets
         self.graphs = GraphCache(MAX_ENCODER_GRAPHS)
@@ -88,30 +96,27 @@ class CoNeTTEPreprocessor:
             x = list(x)
 
         if isinstance(x, list) and len(x) > 0 and isinstance(x[0], str):
-            loaded = [load_audio(p) for p in x]
-            waves = [w for w, _ in loaded]
-            srs = [s for _, s in loaded]
+            return self._pad_stack(native_loader.load_batch(x, TARGET_SR))
+        if hasattr(x, "shape"):
+            arr = _as_numpy(x)
+            if arr.ndim == 1:
+                arr = arr[None, None, :]
+            elif arr.ndim == 2:
+                arr = arr[None, :, :]
+            elif arr.ndim != 3:
+                raise ValueError(f"Invalid audio array shape {arr.shape}")
+            waves = [arr[i] for i in range(arr.shape[0])]
         else:
-            if hasattr(x, "shape"):
-                arr = _as_numpy(x)
-                if arr.ndim == 1:
-                    arr = arr[None, None, :]
-                elif arr.ndim == 2:
-                    arr = arr[None, :, :]
-                elif arr.ndim != 3:
-                    raise ValueError(f"Invalid audio array shape {arr.shape}")
-                waves = [arr[i] for i in range(arr.shape[0])]
-            else:
-                waves = [_as_numpy(w) for w in x]
-                waves = [w[None, :] if w.ndim == 1 else w for w in waves]
-            if sr is None:
-                srs = [TARGET_SR] * len(waves)
-            elif isinstance(sr, int):
-                srs = [sr] * len(waves)
-            else:
-                srs = list(sr)
-            if len(srs) == 1 and len(waves) != 1:
-                srs = srs * len(waves)
+            waves = [_as_numpy(w) for w in x]
+            waves = [w[None, :] if w.ndim == 1 else w for w in waves]
+        if sr is None:
+            srs = [TARGET_SR] * len(waves)
+        elif isinstance(sr, int):
+            srs = [sr] * len(waves)
+        else:
+            srs = list(sr)
+        if len(srs) == 1 and len(waves) != 1:
+            srs = srs * len(waves)
         if len(waves) != len(srs) or len(waves) == 0:
             raise ValueError(f"Mismatched audio/sr counts ({len(waves)}/{len(srs)}).")
 
@@ -122,7 +127,10 @@ class CoNeTTEPreprocessor:
             if s != TARGET_SR:
                 w = resample_numpy(w, int(s), TARGET_SR)
             mono.append(w.mean(axis=0).astype(np.float32))
+        return self._pad_stack(mono)
 
+    def _pad_stack(self, mono: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+        """Mono clips → (B, padded length) zero-padded batch and (B,) lengths."""
         lens = np.asarray([len(m) for m in mono], np.int64)
         max_len = int(lens.max())
         pad_len = bucket_length(max_len) if self.use_buckets else max_len

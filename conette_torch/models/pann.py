@@ -1,0 +1,280 @@
+"""The PANN encoders Cnn10, Cnn14 and Cnn14_DecisionLevelAtt on tensors
+(NHWC), inference only.
+
+Counterpart of ``conette_tpu/models/pann.py`` (reference
+``src/conette/nn/encoders/cnn10.py:23-424``, ``cnn14.py:27-216``,
+``cnn14_decisionlevel_att.py:23-245`` over the vendored PANN zoo
+``nn/pann_utils/models.py``), with the same parameter trees, so that both
+packages load one weight tree (``huggingface/convert_pann.py``):
+
+- ``ConvBlock``: 3×3 conv → BN → ReLU twice, then a 2×2 average pool;
+- ``Cnn10``: 4 blocks (64→512) over a 64-mel log-mel frontend, 512-wide
+  frame embeddings;
+- ``Cnn14``: 6 blocks (64→2048), 2048-wide frame embeddings, fc1 clip head;
+- ``Cnn14_DecisionLevelAtt``: attention-pooled clip output (``AttBlock``,
+  a softmax attention over frames).
+
+Every encoder returns ``{frame_embs (B, C, T'), frame_embs_lens (B,),
+clipwise_output (B, 527)}`` and ``embedding`` (B, C), or, with the
+attention head, ``framewise_output`` (B, mel frames, 527). The log-mel
+frontend is the plain one (``ops/frontend.py``), as in the JAX package.
+The names whose architectures live in the zoo (``models/pann_zoo.py``)
+raise ``NotImplementedError`` until it is ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from conette_torch.models.layers import (
+    Params,
+    batch_norm_inference,
+    batch_norm_init,
+    conv2d,
+    conv2d_init,
+    linear,
+    linear_init,
+)
+from conette_torch.models.pann_zoo import (
+    PANN_LOGMEL32,
+    PANN_LOGMEL128,
+    PANN_LOGMEL_8K,
+    PANN_LOGMEL_16K,
+    _pool1d_same,
+)
+from conette_torch.ops.frontend import LogMelConfig, logmel_spectrogram
+
+PANN_LOGMEL = LogMelConfig(n_mels=64)
+NUM_AUDIOSET_CLASSES = 527
+
+CNN10_CHANNELS = (64, 128, 256, 512)
+CNN14_CHANNELS = (64, 128, 256, 512, 1024, 2048)
+
+
+# ----------------------------------------------------------------- ConvBlock
+def conv_block_init(gen: torch.Generator, in_ch: int, out_ch: int) -> Params:
+    return {
+        "conv1": conv2d_init(gen, in_ch, out_ch, (3, 3), init="torch"),
+        "bn1": batch_norm_init(out_ch),
+        "conv2": conv2d_init(gen, out_ch, out_ch, (3, 3), init="torch"),
+        "bn2": batch_norm_init(out_ch),
+    }
+
+
+def conv_block(params: Params, x: torch.Tensor, *, pool_size: tuple[int, int] = (2, 2)
+               ) -> torch.Tensor:
+    """NHWC PANN ``ConvBlock``; the average pool floors odd extents (the
+    JAX package's ``pool_type="max"`` has no caller and is not ported)."""
+    y = conv2d(params["conv1"], x, padding=((1, 1), (1, 1)))
+    y = torch.relu(batch_norm_inference(params["bn1"], y))
+    y = conv2d(params["conv2"], y, padding=((1, 1), (1, 1)))
+    y = torch.relu(batch_norm_inference(params["bn2"], y))
+    if pool_size == (1, 1):
+        return y
+    return F.avg_pool2d(y.permute(0, 3, 1, 2), pool_size).permute(0, 2, 3, 1).contiguous()
+
+
+# --------------------------------------------------------------------- init
+def pann_init(
+    gen: torch.Generator,
+    channels: tuple[int, ...] = CNN14_CHANNELS,
+    num_classes: int = NUM_AUDIOSET_CLASSES,
+    n_mels: int = 64,
+    att_head: bool = False,
+) -> Params:
+    """Random parameter tree with the JAX package's structure and the torch
+    default distributions, on the CPU."""
+    params: Params = {
+        "bn0": batch_norm_init(n_mels),
+        "blocks": [],
+        "fc1": linear_init(gen, channels[-1], channels[-1], init="torch"),
+    }
+    in_ch = 1
+    for ch in channels:
+        params["blocks"].append(conv_block_init(gen, in_ch, ch))
+        in_ch = ch
+    if att_head:
+        params["att"] = {
+            "att": linear_init(gen, channels[-1], num_classes, init="torch"),
+            "cla": linear_init(gen, channels[-1], num_classes, init="torch"),
+        }
+    else:
+        params["fc_audioset"] = linear_init(gen, channels[-1], num_classes, init="torch")
+    return params
+
+
+def cnn10_init(gen: torch.Generator, **kw: Any) -> Params:
+    return pann_init(gen, CNN10_CHANNELS, **kw)
+
+
+def cnn14_init(gen: torch.Generator, **kw: Any) -> Params:
+    return pann_init(gen, CNN14_CHANNELS, **kw)
+
+
+def cnn14_emb_init(gen: torch.Generator, emb_dim: int = 512, **kw: Any) -> Params:
+    """Cnn14_emb512/128/32 (reference ``models.py:1315-1660``): fc1 projects
+    the pooled features to a smaller embedding before the AudioSet head."""
+    params = pann_init(gen, CNN14_CHANNELS, **kw)
+    params["fc1"] = linear_init(gen, CNN14_CHANNELS[-1], emb_dim, init="torch")
+    params["fc_audioset"] = linear_init(
+        gen, emb_dim, kw.get("num_classes", NUM_AUDIOSET_CLASSES), init="torch")
+    return params
+
+
+def cnn14_att_init(gen: torch.Generator, **kw: Any) -> Params:
+    return pann_init(gen, CNN14_CHANNELS, att_head=True, **kw)
+
+
+# ------------------------------------------------------------------ forward
+def pann_apply(
+    params: Params,
+    waveform: torch.Tensor,
+    waveform_lens: torch.Tensor | None = None,
+    *,
+    logmel_cfg: LogMelConfig = PANN_LOGMEL,
+    waveform_input: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+) -> dict[str, torch.Tensor]:
+    """Cnn10 / Cnn14 / Cnn14_DecisionLevelAtt forward, the architecture read
+    from the parameter tree (reference contract: ``nn/encoders/cnn14.py:27-216``).
+
+    :param waveform: (B, T_samples), or a (B, T_frames, n_mels) log-mel
+        spectrogram when ``waveform_input`` is False.
+    """
+    if waveform_input:
+        mel = logmel_spectrogram(waveform, logmel_cfg, compute_dtype=compute_dtype)
+        input_time_len = waveform.shape[-1]
+    else:
+        mel = waveform
+        input_time_len = waveform.shape[1]
+    mel = batch_norm_inference(params["bn0"], mel, axis=-1)
+
+    x = mel[..., None].to(compute_dtype)  # (B, T, F, 1)
+    n_blocks = len(params["blocks"])
+    for i, block in enumerate(params["blocks"]):
+        # the Cnn14 family pools (2, 2) after blocks 1-5 and not after the
+        # last (cnn14.py:174-184); Cnn10 pools after all 4 (models.py:607-700)
+        pool = (1, 1) if (n_blocks == 6 and i == n_blocks - 1) else (2, 2)
+        x = conv_block(block, x, pool_size=pool)
+
+    frames = x.float().mean(dim=2)  # (B, T', C): the frequency mean
+    n_out = frames.shape[1]
+    reduction = max(input_time_len // max(n_out, 1), 1)
+    if waveform_lens is None:
+        lens = torch.full((frames.shape[0],), n_out, dtype=torch.int32, device=frames.device)
+    else:
+        # torch.round is half-to-even, as jnp.round
+        lens = torch.round(waveform_lens.float() / reduction).to(torch.int32)
+
+    out: dict[str, torch.Tensor] = {"frame_embs": frames.transpose(1, 2), "frame_embs_lens": lens}
+    if "att" in params:
+        # the Cnn14_DecisionLevelAtt head (cnn14_decisionlevel_att.py:225-245):
+        # k3/s1/p1 max + avg smoothing over frames → fc1 → per-frame 2048-wide
+        # embeddings (this encoder's captioning frame_embs) → AttBlock's
+        # softmax attention pooling
+        smoothed = _pool1d_same(frames, "max") + _pool1d_same(frames, "avg")
+        h = torch.relu(linear(params["fc1"], smoothed))  # (B, T', 2048)
+        out["frame_embs"] = h.transpose(1, 2)
+        att = torch.softmax(torch.clamp(linear(params["att"]["att"], h), -10.0, 10.0), dim=1)
+        cla = torch.sigmoid(linear(params["att"]["cla"], h))
+        out["clipwise_output"] = torch.sum(att * cla, dim=1)
+        # framewise: each segment repeated 32 times, then cut or padded with
+        # the last to the mel frame count (pann_utils/pytorch_utils.py
+        # interpolate + pad_framewise_output)
+        mel_frames = input_time_len // logmel_cfg.hop_length + 1 if waveform_input else input_time_len
+        up = torch.repeat_interleave(cla, 32, dim=1)
+        if up.shape[1] < mel_frames:
+            tail = up[:, -1:].expand(-1, mel_frames - up.shape[1], -1)
+            up = torch.cat([up, tail], dim=1)
+        else:
+            up = up[:, :mel_frames]
+        out["framewise_output"] = up
+    else:
+        h = frames.amax(dim=1) + frames.mean(dim=1)
+        h = torch.relu(linear(params["fc1"], h))
+        out["clipwise_output"] = torch.sigmoid(linear(params["fc_audioset"], h))
+        # the reference returns the penultimate relu(fc1) activations as
+        # "embedding" (models.py:271-277)
+        out["embedding"] = h
+    return out
+
+
+#: the reference zoo (nn/pann_utils/models.py, with the embedding-width and
+#: frontend variants), as the JAX package's build_pann_model accepts it
+PANN_ZOO_NAMES = frozenset(
+    {
+        "cnn6", "cnn10", "cnn14", "cnn14_16k", "cnn14_8k", "cnn14_mel32",
+        "cnn14_mel128", "cnn14_no_specaug", "cnn14_no_dropout",
+        "cnn14_mixup_time_domain", "cnn14_emb512", "cnn14_emb128",
+        "cnn14_emb32", "cnn14_decisionlevelatt", "cnn14_decisionlevelmax",
+        "cnn14_decisionlevelavg", "resnet22", "resnet38", "resnet54",
+        "res1dnet31", "res1dnet51", "mobilenetv1", "mobilenetv2",
+        "leenet11", "leenet24", "dainet19", "wavegram_cnn14",
+        "wavegram_logmel_cnn14", "wavegram_logmel128_cnn14",
+    }
+)
+
+#: the names whose forward is ``pann_apply`` with a frontend configuration
+_PANN_APPLY_CFGS = {
+    "cnn10": PANN_LOGMEL, "cnn14": PANN_LOGMEL, "cnn14_decisionlevelatt": PANN_LOGMEL,
+    "cnn14_att": PANN_LOGMEL, "cnn14_emb512": PANN_LOGMEL, "cnn14_emb128": PANN_LOGMEL,
+    "cnn14_emb32": PANN_LOGMEL, "cnn14_no_specaug": PANN_LOGMEL,
+    "cnn14_no_dropout": PANN_LOGMEL, "cnn14_mixup_time_domain": PANN_LOGMEL,
+    "cnn14_16k": PANN_LOGMEL_16K, "cnn14_8k": PANN_LOGMEL_8K,
+    "cnn14_mel32": PANN_LOGMEL32, "cnn14_mel128": PANN_LOGMEL128,
+}
+
+#: the names whose architecture or head lives in ``models/pann_zoo.py``
+ZOO_ONLY_NAMES = PANN_ZOO_NAMES - _PANN_APPLY_CFGS.keys()
+
+
+def _require_ported(name: str) -> str:
+    name_l = name.lower()
+    if name_l in ZOO_ONLY_NAMES:
+        raise NotImplementedError(
+            f"PANN model {name!r} lives in models/pann_zoo.py, which conette_torch "
+            "has not ported yet (ROADMAP Queue 1); the ported names are "
+            f"{sorted(_PANN_APPLY_CFGS)}")
+    if name_l not in _PANN_APPLY_CFGS:
+        raise ValueError(f"Unknown PANN model {name!r}. (expected one of {sorted(PANN_ZOO_NAMES)})")
+    return name_l
+
+
+def build_pann_model(name: str, gen: torch.Generator | None = None) -> tuple[Params, int]:
+    """(params, frame embedding width) by registry name (reference
+    ``nn/pann_utils/hub.py:14-56``)."""
+    if gen is None:
+        gen = torch.Generator().manual_seed(0)
+    name_l = _require_ported(name)
+    if name_l == "cnn10":
+        return cnn10_init(gen), CNN10_CHANNELS[-1]
+    if name_l in ("cnn14_decisionlevelatt", "cnn14_att"):
+        return cnn14_att_init(gen), CNN14_CHANNELS[-1]
+    if name_l.startswith("cnn14_emb"):
+        return cnn14_emb_init(gen, int(name_l.removeprefix("cnn14_emb"))), CNN14_CHANNELS[-1]
+    if name_l == "cnn14_mel32":
+        return cnn14_init(gen, n_mels=32), CNN14_CHANNELS[-1]
+    if name_l == "cnn14_mel128":
+        return cnn14_init(gen, n_mels=128), CNN14_CHANNELS[-1]
+    # cnn14, and the variants with Cnn14's parameters: the 16/8 kHz frontends
+    # (models.py:3134-3379) and the training-time differences (no
+    # SpecAugment, no dropout, waveform mixup; models.py:282-496, 3380-3497)
+    return cnn14_init(gen), CNN14_CHANNELS[-1]
+
+
+def apply_pann_model(
+    name: str,
+    params: Params,
+    waveform: torch.Tensor,
+    waveform_lens: torch.Tensor | None = None,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+) -> dict[str, torch.Tensor]:
+    """The forward of a ``build_pann_model`` name, with its frontend
+    configuration (reference ``classtype(**kwargs)`` + ``model(input)``,
+    ``pann_utils/hub.py:14-56``)."""
+    return pann_apply(params, waveform, waveform_lens, logmel_cfg=_PANN_APPLY_CFGS[_require_ported(name)],
+                      compute_dtype=compute_dtype)

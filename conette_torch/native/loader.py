@@ -1,0 +1,172 @@
+"""ctypes bindings for the native audio loader.
+
+Counterpart of ``conette_tpu/native/loader.py``: RIFF/WAVE PCM decode,
+channel mean and the polyphase sinc resample of ``ops/resample.py`` in C++
+(``audio_loader.cpp`` beside this file, a byte-equal copy of
+``native/audio_loader.cpp``). The ctypes calls release the GIL, so
+:func:`load_batch` decodes a corpus on a thread pool.
+
+On first use the source is compiled with the host's ``g++`` and the flags of
+``native/Makefile`` into ``build/conette_torch/`` at the repository root.
+The library's file name carries a hash of the source, the flags and the
+target that ``-march=native`` resolves to on this host (as ``g++ -Q
+--help=target`` reports it), so an edited source, or a build directory
+carried to another machine, builds anew. The compiler writes to a temporary
+file that is then renamed into place, so processes that build at once never
+load a half-written library. A build that fails raises with the compiler's
+output: nothing falls back to numpy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import subprocess
+import tempfile
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+
+from conette_torch.kernels._build import BUILD_DIR
+
+SOURCE = Path(__file__).resolve().with_name("audio_loader.cpp")
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-march=native", "-ffast-math", "-fPIC", "-shared", "-std=c++17")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _run_cxx(args: list[str], what: str) -> subprocess.CompletedProcess:
+    try:
+        proc = subprocess.run([CXX, *args], capture_output=True, text=True)
+    except FileNotFoundError as err:
+        raise RuntimeError(f"the native audio loader needs {CXX} on PATH to {what}") from err
+    if proc.returncode:
+        raise RuntimeError(f"{CXX} failed to {what}:\n{proc.stderr}")
+    return proc
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(SOURCE.read_bytes())
+    h.update(_run_cxx(["-march=native", "-Q", "--help=target"], "report its target").stdout.encode())
+    return BUILD_DIR / f"libconette_audio-{h.hexdigest()[:16]}.so"
+
+
+def build(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp_out = Path(tmp) / out.name
+        _run_cxx([*CXX_FLAGS, "-o", str(tmp_out), str(SOURCE)], f"build {SOURCE.name}")
+        os.replace(tmp_out, out)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded library, built first if its source, flags or target changed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.is_file():
+                build(path)
+            lib = ctypes.CDLL(str(path))
+            i32p, i64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
+            f32p = ctypes.POINTER(ctypes.c_float)
+            lib.conette_wav_info.argtypes = [ctypes.c_char_p, i32p, i32p, i64p]
+            lib.conette_wav_info.restype = ctypes.c_int
+            lib.conette_load_resample_mono.argtypes = [
+                ctypes.c_char_p, ctypes.c_int32, f32p, ctypes.c_int64, i64p]
+            lib.conette_load_resample_mono.restype = ctypes.c_int
+            lib.conette_resample.argtypes = [
+                f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, f32p, ctypes.c_int64, i64p]
+            lib.conette_resample.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+_ERROR_MESSAGES = {
+    -1: "cannot open file",
+    -2: "not a RIFF/WAVE file",
+    -3: "unsupported WAV encoding",
+    -4: "invalid argument/buffer",
+    -5: "internal decoder error",
+}
+
+
+def _raise(fn: str, path: str, rc: int) -> None:
+    reason = _ERROR_MESSAGES.get(rc, f"error code {rc}")
+    raise OSError(f"{fn}({path!r}): {reason}")
+
+
+def is_riff(path: str) -> bool:
+    """Whether the file starts as a RIFF container (the native decoder's)."""
+    with open(path, "rb") as f:
+        return f.read(4) == b"RIFF"
+
+
+def wav_info(path: str) -> tuple[int, int, int]:
+    """(sample_rate, channels, num_frames) from a WAV header."""
+    sr, ch, n = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int64()
+    rc = library().conette_wav_info(path.encode(), sr, ch, n)
+    if rc != 0:
+        _raise("conette_wav_info", path, rc)
+    return sr.value, ch.value, n.value
+
+
+def load_resample_mono(path: str, target_sr: int = 0) -> np.ndarray:
+    """Decode → channel mean → resample to ``target_sr`` (0: keep the file's
+    rate); (time,) float32. Containers other than RIFF (FLAC, mp3, Ogg)
+    decode through ``utils/audio_io.py`` and resample natively, so every
+    file takes the mean before the resample, as the WAV route does."""
+    if not is_riff(path):
+        from conette_torch.utils.audio_io import load_audio
+
+        try:
+            wav, sr = load_audio(path)
+        except ValueError as err:  # the native route's OSError for unreadable audio
+            raise OSError(str(err)) from err
+        mono = wav.mean(axis=0).astype(np.float32)
+        if target_sr <= 0 or sr == target_sr:
+            return mono
+        return resample(mono, sr, target_sr)
+    sr, _, frames = wav_info(path)
+    tsr = target_sr if target_sr > 0 else sr
+    capacity = int(math.ceil(frames * tsr / sr)) + 16
+    out = np.empty((capacity,), np.float32)
+    out_len = ctypes.c_int64()
+    rc = library().conette_load_resample_mono(
+        path.encode(), ctypes.c_int32(target_sr),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), ctypes.c_int64(capacity), out_len,
+    )
+    if rc != 0:
+        _raise("conette_load_resample_mono", path, rc)
+    return out[: out_len.value].copy()
+
+
+def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Resample a mono (time,) signal in native code; (time',) float32."""
+    x = np.ascontiguousarray(x, np.float32)
+    capacity = int(math.ceil(len(x) * target_sr / orig_sr)) + 16
+    out = np.empty((capacity,), np.float32)
+    out_len = ctypes.c_int64()
+    rc = library().conette_resample(
+        x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), ctypes.c_int64(len(x)),
+        ctypes.c_int32(orig_sr), ctypes.c_int32(target_sr),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), ctypes.c_int64(capacity), out_len,
+    )
+    if rc != 0:
+        raise OSError(f"conette_resample failed ({rc})")
+    return out[: out_len.value].copy()
+
+
+def load_batch(paths: Sequence[str], target_sr: int, workers: int = 8) -> list[np.ndarray]:
+    """:func:`load_resample_mono` of every path on a pool of threads, in order."""
+    library()  # build once, before the threads need it
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(lambda p: load_resample_mono(p, target_sr), paths))

@@ -1,9 +1,10 @@
-"""Polyphase windowed-sinc resampling on the host.
+"""Polyphase windowed-sinc resampling, on the host and on the device.
 
-Counterpart of the numpy half of ``conette_tpu/ops/resample.py``: the
-filter bank of ``torchaudio.functional.resample`` (Hann-windowed sincs,
-lowpass_filter_width 6, rolloff 0.99) applied with one BLAS matmul. The
-preprocessor resamples on the host, so this is all the serving path needs.
+Counterpart of ``conette_tpu/ops/resample.py``: the filter bank of
+``torchaudio.functional.resample`` (Hann-windowed sincs, lowpass_filter_width
+6, rolloff 0.99), applied on the host with one BLAS matmul
+(:func:`resample_numpy`, the preprocessor's route) or to tensors as one
+strided ``F.conv1d`` followed by a phase interleave (:func:`resample`).
 """
 
 from __future__ import annotations
@@ -12,8 +13,12 @@ import math
 from functools import lru_cache
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
-__all__ = ["resample_kernel", "resampled_length", "resample_numpy"]
+from conette_torch.weights import device_constant
+
+__all__ = ["resample", "resample_kernel", "resampled_length", "resample_numpy"]
 
 
 @lru_cache(maxsize=32)
@@ -71,5 +76,39 @@ def resample_numpy(waveform: np.ndarray, orig_freq: int, new_freq: int) -> np.nd
     ]  # (B, frames, K)
     y = windows @ kernels.T  # (B, frames, new)
     y = y.reshape(x.shape[0], -1)
+    target = resampled_length(length, orig_freq, new_freq)
+    return y[:, :target].reshape(*shape[:-1], target)
+
+
+@lru_cache(maxsize=16)
+def _filter_bank(orig_freq: int, new_freq: int, lowpass_filter_width: int, rolloff: float,
+                 device: torch.device) -> torch.Tensor:
+    """The (new, 1, K) phase filters as f32 on ``device``, built once for each key."""
+    kernels, _ = resample_kernel(orig_freq, new_freq, lowpass_filter_width, rolloff)
+    return device_constant(np.ascontiguousarray(kernels[:, None, :]), device)
+
+
+def resample(
+    waveform: torch.Tensor,
+    orig_freq: int,
+    new_freq: int,
+    lowpass_filter_width: int = 6,
+    rolloff: float = 0.99,
+) -> torch.Tensor:
+    """Resample a (..., time) tensor from ``orig_freq`` to ``new_freq`` on its
+    device, in its dtype: the filter bank as one convolution of stride
+    ``orig / gcd``, whose ``new / gcd`` output channels are the phases."""
+    if orig_freq == new_freq:
+        return waveform
+    gcd = math.gcd(orig_freq, new_freq)
+    orig = orig_freq // gcd
+    _, width = resample_kernel(orig_freq, new_freq, lowpass_filter_width, rolloff)
+    filters = _filter_bank(orig_freq, new_freq, lowpass_filter_width, rolloff, waveform.device)
+
+    shape = waveform.shape
+    length = shape[-1]
+    x = F.pad(waveform.reshape(-1, 1, length), (width, width + orig))
+    y = F.conv1d(x, filters.to(waveform.dtype), stride=orig)  # (B, new, frames)
+    y = y.transpose(1, 2).reshape(x.shape[0], -1)  # phases interleaved
     target = resampled_length(length, orig_freq, new_freq)
     return y[:, :target].reshape(*shape[:-1], target)

@@ -3,7 +3,8 @@
 Counterpart of ``conette_tpu/serving.py`` (``caption_corpus``, ``warmup``):
 
 1. clips are grouped into **length buckets** (``bucket_length`` of their
-   32 kHz length, read from WAV headers, decoded for other containers), so
+   32 kHz length, read from WAV headers by the native loader, decoded for
+   other containers; a file that cannot be read raises), so
    every batch of a bucket has one shape;
 2. each bucket is cut into fixed-size batches; a tail batch is padded with
    silence rows, which are dropped after decoding;
@@ -38,8 +39,8 @@ from conette_torch.huggingface.model import CoNeTTEModel
 from conette_torch.huggingface.preprocessor import bucket_length
 from conette_torch.models.conette import encode_audio, forward_generate, tasks_to_bos_ids
 from conette_torch.models.convnext import convnext_apply
+from conette_torch.native import loader as native_loader
 from conette_torch.ops.resample import resampled_length
-from conette_torch.utils.audio_io import wav_info
 
 pylog = logging.getLogger(__name__)
 
@@ -84,10 +85,9 @@ def caption_corpus(
     # decoded (waveforms are loaded again per batch, so memory stays
     # O(batch) instead of O(corpus))
     def resampled_len(path: str) -> int:
-        try:
-            sr, _, frames = wav_info(path)
-        except ValueError:
+        if not native_loader.is_riff(path):
             return int(pre.load_resample(path)[1][0])
+        sr, _, frames = native_loader.wav_info(path)
         return frames if sr == pre.target_sr else resampled_length(frames, sr, pre.target_sr)
 
     buckets: dict[int, list[int]] = {}

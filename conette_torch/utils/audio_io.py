@@ -16,7 +16,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["load_audio", "load_wav", "wav_info", "save_wav", "generate_sample_wav"]
+__all__ = ["load_audio", "load_wav", "save_wav", "generate_sample_wav"]
 
 
 def load_audio(path: str) -> Tuple[np.ndarray, int]:
@@ -55,46 +55,6 @@ def load_audio(path: str) -> Tuple[np.ndarray, int]:
     )
 
 
-def _wav_chunks(f, path: str, read_data: bool) -> tuple[bytes, int, bytes | None]:
-    """Walk the RIFF chunks of an open WAV file → (fmt chunk, data chunk
-    size, data bytes or None when ``read_data`` is False)."""
-    header = f.read(12)
-    if len(header) < 12 or header[:4] != b"RIFF" or header[8:12] != b"WAVE":
-        raise ValueError(f"Not a RIFF/WAVE file: {path}")
-    fmt = None
-    data_size = None
-    data = None
-    while True:
-        chunk_header = f.read(8)
-        if len(chunk_header) < 8:
-            break
-        chunk_id, size = struct.unpack("<4sI", chunk_header)
-        if chunk_id == b"fmt ":
-            fmt = f.read(size)
-        elif chunk_id == b"data":
-            data_size = size
-            if read_data:
-                data = f.read(size)
-            else:
-                f.seek(size + (size & 1), 1)
-        else:
-            f.seek(size + (size & 1), 1)
-        if fmt is not None and data_size is not None:
-            break
-    if fmt is None or data_size is None:
-        raise ValueError(f"Missing fmt/data chunk in {path}")
-    return fmt, data_size, data
-
-
-def wav_info(path: str) -> Tuple[int, int, int]:
-    """(sample_rate, channels, frames) from a WAV file's header alone; the
-    data chunk is not read. Raises ``ValueError`` for other containers."""
-    with open(path, "rb") as f:
-        fmt, data_size, _ = _wav_chunks(f, path, read_data=False)
-    _, n_channels, sample_rate, _, block_align, _ = struct.unpack("<HHIIHH", fmt[:16])
-    return int(sample_rate), int(n_channels), data_size // max(block_align, 1)
-
-
 def load_wav(path: str) -> Tuple[np.ndarray, int]:
     """Load a WAV file → (waveform (channels, time) float32 in [-1, 1], sr).
 
@@ -102,7 +62,26 @@ def load_wav(path: str) -> Tuple[np.ndarray, int]:
     1 / 2**(bits-1); floats pass through.
     """
     with open(path, "rb") as f:
-        fmt, _, data = _wav_chunks(f, path, read_data=True)
+        header = f.read(12)
+        if len(header) < 12 or header[:4] != b"RIFF" or header[8:12] != b"WAVE":
+            raise ValueError(f"Not a RIFF/WAVE file: {path}")
+        fmt = None
+        data = None
+        while True:
+            chunk_header = f.read(8)
+            if len(chunk_header) < 8:
+                break
+            chunk_id, size = struct.unpack("<4sI", chunk_header)
+            if chunk_id == b"fmt ":
+                fmt = f.read(size)
+            elif chunk_id == b"data":
+                data = f.read(size)
+            else:
+                f.seek(size + (size & 1), 1)
+            if fmt is not None and data is not None:
+                break
+    if fmt is None or data is None:
+        raise ValueError(f"Missing fmt/data chunk in {path}")
 
     audio_format, n_channels, sample_rate, _, _, bits = struct.unpack(
         "<HHIIHH", fmt[:16]

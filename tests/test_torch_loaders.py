@@ -1,6 +1,6 @@
 """The port's loaders against conette_tpu's, on the CPU: the copied FLAC,
 mp3/Ogg and checkpoint-conversion modules, the container dispatch of
-``load_audio``, ``wav_info``, and ``from_pretrained`` on a directory that
+``load_audio``, the native loader's ``wav_info``, and ``from_pretrained`` on a directory that
 holds the reference's torch checkpoint instead of ``params.npz``."""
 
 import ast
@@ -32,7 +32,8 @@ from conette_torch.huggingface.convert import (
 )
 from conette_torch.huggingface.model import CoNeTTEModel
 from conette_torch.utils import flac, lossy
-from conette_torch.utils.audio_io import load_audio, load_wav, save_wav, wav_info
+from conette_torch.native.loader import wav_info
+from conette_torch.utils.audio_io import load_audio, load_wav, save_wav
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -149,7 +150,7 @@ def test_wav_info_reads_the_header(tmp_path, channels, sr, width):
     if native.is_available():
         assert native.wav_info(str(path)) == wav_info(str(path))
     flac.save_flac(str(tmp_path / "a.flac"), x, sr)
-    with pytest.raises(ValueError, match="RIFF"):
+    with pytest.raises(OSError, match="RIFF"):
         wav_info(str(tmp_path / "a.flac"))
 
 

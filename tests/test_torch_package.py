@@ -36,9 +36,18 @@ def test_port_imports_neither_jax_nor_conette_tpu():
         "import conette_torch.data.datamodule, conette_torch.data.hdf, conette_torch.metrics\n"
         "import conette_torch.config, conette_torch.parallel.distributed, conette_torch.utils.csum\n"
         "import conette_torch.utils.misc, conette_torch.utils.disk_cache, conette_torch.utils.dcase\n"
+        "import conette_torch.prepare, conette_torch.info, conette_torch.native.loader\n"
+        "import conette_torch.models.registries, conette_torch.models.pann, conette_torch.models.pann_zoo\n"
+        "import conette_torch.huggingface.convert_pann, conette_torch.ops.frontend_factories\n"
+        "import conette_torch.ops.gammatone, conette_torch.ops.resample\n"
         "bad = [m for m in sys.modules if m in ('jax', 'optax', 'h5py')\n"
         "       or m.startswith(('jax.', 'optax.', 'conette_tpu'))]\n"
         "assert not bad, bad\n"
+        "# the native audio library is the port's own build, never conette_tpu's\n"
+        "lib = conette_torch.native.loader.library()._name\n"
+        "assert lib.startswith(str(conette_torch.native.loader.BUILD_DIR)), lib\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libconette_audio.so' not in maps and lib in maps, lib\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"} | {"PYTHONPATH": REPO}
