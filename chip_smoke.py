@@ -90,12 +90,21 @@ Phases (any failure exits non-zero):
    encoder calls; read the packs back and hold 4 dev rows against the f32
    encoder on the CPU over the same batch (1e-4); run ``main_train`` on
    the packs for 1 epoch of 2 steps (``dm.bsize`` 32) and caption 2 files
-   from its run directory on the card; run Cnn10, Cnn14 and
-   Cnn14_DecisionLevelAtt at full width on 8 x 10 s clips (time a call)
-   and hold each against the CPU on one clip (1e-4 of the largest value);
-   run ``get_frontend`` for all six names on one clip, card against CPU;
-8. print a details JSON line, the card line, the ``kernels`` JSON line
-   and, last, the device JSON line.
+   from its run directory on the card; run Cnn10, Cnn14,
+   Cnn14_DecisionLevelAtt and the 16 architectures and heads of
+   ``models/pann_zoo.py`` (``ZOO_NAMES``: ResNet22/38/54, MobileNetV1/V2,
+   Cnn6, the three Wavegram encoders, LeeNet11/24, DaiNet19,
+   Res1dNet31/51, Cnn14_DecisionLevelMax/Avg; their batch norms
+   randomised, their conv biases zero) at full width on 8 x 10 s clips at
+   f32 (time a call: median of 5) and hold each against the CPU on one
+   clip (1e-4 of the largest value); stage the registry's 8 zoo
+   checkpoints in the reference's layout under ``CONETTE_CKPT_DIR``, load
+   each with ``load_registry_pann`` (equal to the staged tree bit for bit)
+   and run it on the card against the same CPU reference; run
+   ``get_frontend`` for all six names on one clip, card against CPU;
+8. print a details JSON line (also written to
+   ``chiprun_out/chip_smoke_details.json``), the card line, the ``kernels``
+   JSON line and, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -1455,6 +1464,17 @@ PREP_ROW_ATOL = 1e-4
 PANN_REL_TOL = 1e-4
 DB_ATOL = 0.05
 PANN_NAMES = ("cnn10", "cnn14", "cnn14_att")
+# the architectures and heads of models/pann_zoo.py, on the same clips, their
+# batch norms randomised (a residual branch's last BN weight is zero at init,
+# where a wrong branch would add nothing) and their conv biases zero, as in
+# the reference's checkpoints
+ZOO_NAMES = ("cnn6", "cnn14_decisionlevelavg", "cnn14_decisionlevelmax", "dainet19", "leenet11",
+             "leenet24", "mobilenetv1", "mobilenetv2", "res1dnet31", "res1dnet51", "resnet22",
+             "resnet38", "resnet54", "wavegram_cnn14", "wavegram_logmel128_cnn14",
+             "wavegram_logmel_cnn14")
+# the PANN_REGISTRY checkpoints of those architectures, loaded from staged files
+REGISTRY_ZOO = ("Cnn6", "MobileNetV1", "MobileNetV2", "ResNet22", "ResNet38", "ResNet54",
+                "Wavegram_Cnn14", "Wavegram_Logmel_Cnn14")
 
 
 def write_prepare_corpus(root: str) -> dict:
@@ -1560,42 +1580,182 @@ def native_loader_check(audio_dir: str, names: list[str]) -> dict:
                 numpy_s=numpy_s, max_abs_err=err)
 
 
-def pann_check(dev) -> dict:
-    """Cnn10, Cnn14 and Cnn14_DecisionLevelAtt at full width on 8 x 10 s
-    clips on the card (median CUDA-event time of 5 calls), each held against
-    the CPU on the first clip."""
+def random_batch_norms(tree, rng: np.random.Generator):
+    """A numpy PANN tree with every batch norm drawn from ``rng`` (weight
+    and running variance in [0.5, 1.5), bias and running mean N(0, 0.1));
+    other leaves as they are."""
+    if isinstance(tree, dict):
+        if "running_var" in tree:
+            n = len(tree["weight"])
+            return {"weight": rng.uniform(0.5, 1.5, n).astype(np.float32),
+                    "bias": (0.1 * rng.standard_normal(n)).astype(np.float32),
+                    "running_mean": (0.1 * rng.standard_normal(n)).astype(np.float32),
+                    "running_var": rng.uniform(0.5, 1.5, n).astype(np.float32)}
+        return {k: random_batch_norms(v, rng) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [random_batch_norms(v, rng) for v in tree]
+    return tree
+
+
+def without_conv_biases(tree):
+    """A numpy PANN tree with every 2-D conv's bias zero, as the converter
+    makes it from the reference's bias-free convs."""
+    if isinstance(tree, dict):
+        if np.ndim(tree.get("weight")) == 4:
+            return dict(tree, bias=np.zeros_like(tree["bias"]))
+        return {k: without_conv_biases(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [without_conv_biases(v) for v in tree]
+    return tree
+
+
+def reference_pann_state(tree) -> dict:
+    """The reference's torch state dict of a numpy PANN tree (the inverse
+    of ``convert_pann``, for every name of ``PANN_ZOO_NAMES``): 2-D conv
+    biases dropped (the reference's convs have none), with the BN counters
+    and a frontend buffer that the converter skips."""
+    sd = {"spectrogram_extractor.stft.conv_real.weight": np.zeros((513, 1, 1024), np.float32)}
+
+    def put(prefix: str, p) -> None:
+        if "running_var" in p:  # BatchNorm
+            sd.update({f"{prefix}.{k}": np.asarray(v) for k, v in p.items()})
+            sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+        elif "weight" in p and "bias" in p and np.ndim(p["weight"]) == 2:  # Linear
+            sd[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(p["weight"]).T)
+            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+        elif "weight" in p:  # HWIO conv2d → OIHW, WIO conv1d → (out, in, k)
+            w = np.asarray(p["weight"])
+            sd[f"{prefix}.weight"] = np.ascontiguousarray(
+                w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.transpose(2, 1, 0))
+        else:  # a block: its convs and BNs by name, a ResNet downsample by index
+            for k, v in p.items():
+                if k == "downsample" and "conv" in v:
+                    i = int(p["stride"] != 1)  # (AvgPool,) conv, BN
+                    put(f"{prefix}.downsample.{i}", v["conv"])
+                    put(f"{prefix}.downsample.{i + 1}", v["bn"])
+                elif isinstance(v, dict):
+                    put(f"{prefix}.{k}", v)
+
+    if "features" in tree:  # MobileNetV1: conv_bn (0, 2), conv_dw (0, 2, 4, 5)
+        for i, f in enumerate(tree["features"]):
+            names = (("conv", 0), ("bn", 2)) if f["kind"] == "bn" else (
+                ("dwconv", 0), ("bn1", 2), ("pwconv", 4), ("bn2", 5))
+            for k, j in names:
+                put(f"features.{i}.{j}", f[k])
+        tree = {k: tree[k] for k in ("bn0", "fc1", "fc_audioset")}
+    elif "stem_conv" in tree:  # MobileNetV2
+        put("features.0.0", tree["stem_conv"])
+        put("features.0.2", tree["stem_bn"])
+        for i, b in enumerate(tree["blocks"], 1):
+            idx = ((("dwconv", 0), ("dw_bn", 2), ("project_conv", 4), ("project_bn", 5))
+                   if b["expand"] == 1 else
+                   (("expand_conv", 0), ("expand_bn", 1), ("dwconv", 3), ("dw_bn", 5),
+                    ("project_conv", 7), ("project_bn", 8)))
+            for k, j in idx:
+                put(f"features.{i}.conv.{j}", b[k])
+        put(f"features.{len(tree['blocks']) + 1}.0", tree["head_conv"])
+        put(f"features.{len(tree['blocks']) + 1}.1", tree["head_bn"])
+        tree = {k: tree[k] for k in ("bn0", "fc1", "fc_audioset")}
+    # Wavegram_Cnn14 keeps the log-mel branch's conv_block1, so its blocks
+    # are conv_block2..6
+    first = 2 if "blocks" in tree and "conv_block1" in tree else 1
+    for k, v in tree.items():
+        if k == "blocks":
+            for i, b in enumerate(v):
+                put(f"conv_block{i + first}", b)
+        elif k == "layers":
+            for li, stage in enumerate(v, 1):
+                for bi, b in enumerate(stage):
+                    put(f"resnet.layer{li}.{bi}", b)
+        elif k == "att":  # AttBlock's Conv1d k1 heads
+            for h in ("att", "cla"):
+                sd[f"att_block.{h}.weight"] = np.ascontiguousarray(np.asarray(v[h]["weight"]).T)[:, :, None]
+                sd[f"att_block.{h}.bias"] = np.asarray(v[h]["bias"])
+        elif isinstance(v, dict):
+            put(k, v)
+    return sd
+
+
+def pann_check(dev, work_dir: str) -> dict:
+    """Cnn10, Cnn14, Cnn14_DecisionLevelAtt and every name of ``ZOO_NAMES``
+    at full width on 8 x 10 s clips on the card (median CUDA-event time of
+    5 calls), each held against the CPU on the first clip; then the
+    ``REGISTRY_ZOO`` checkpoints, staged under ``CONETTE_CKPT_DIR`` in the
+    reference's layout, loaded with ``load_registry_pann`` (equal to the
+    staged tree bit for bit) and run on the card."""
     import torch
 
+    from conette_torch.huggingface.convert_pann import load_registry_pann
     from conette_torch.models.pann import apply_pann_model, build_pann_model
-    from conette_torch.weights import to_torch
+    from conette_torch.models.registries import PANN_REGISTRY
+    from conette_torch.weights import named_leaves, to_numpy, to_torch
 
     rng = np.random.default_rng(72)
     wav = torch.from_numpy(np.stack(make_clips(rng, BATCH, 10.0, 32_000)))
     lens = torch.full((BATCH,), wav.shape[1])
-    out = {}
-    for i, name in enumerate(PANN_NAMES):
-        tree, width = build_pann_model(name, torch.Generator().manual_seed(73 + i))
-        params = to_torch(tree, dev)
+    registry_archs = {PANN_REGISTRY[reg].architecture.lower() for reg in REGISTRY_ZOO}
+    out, trees, cpu_refs = {}, {}, {}
+
+    def check(name, params, cpu) -> dict:
         with torch.inference_mode():
             def run():
                 return apply_pann_model(name, params, wav.to(dev), lens.to(dev))
 
             ms = time_ms(run, runs=5)
             card = run()
-            cpu = apply_pann_model(name, tree, wav[:1], lens[:1])
         errs = {}
         for k, want in cpu.items():
             got = card[k][:1].cpu()
             assert got.shape == want.shape, (name, k, got.shape, want.shape)
             assert torch.isfinite(card[k].float()).all(), (name, k)
             errs[k] = errors(want, got)[1] if want.is_floating_point() else float((got != want).sum())
-        print(f"  {name}: 8 x 10 s on the card {ms:.2f} ms a call; frame_embs "
-              f"{tuple(card['frame_embs'].shape)}; card vs CPU on one clip, max error relative "
-              f"to the largest value {({k: f'{v:.1e}' for k, v in errs.items()})} "
-              f"(tol {PANN_REL_TOL})", flush=True)
-        assert card["frame_embs"].shape[:2] == (BATCH, width)
         assert max(errs.values()) <= PANN_REL_TOL, (name, errs)
-        out[name] = dict(ms=ms, rel_err=errs, frame_embs=list(card["frame_embs"].shape))
+        return dict(ms=ms, rel_err=errs, frame_embs=list(card["frame_embs"].shape))
+
+    for i, name in enumerate(PANN_NAMES + ZOO_NAMES):
+        tree, width = build_pann_model(name, torch.Generator().manual_seed(73 + i))
+        if name in ZOO_NAMES:
+            tree = to_numpy(tree)
+            tree = to_torch(without_conv_biases(random_batch_norms(tree, np.random.default_rng(73 + i))))
+        with torch.inference_mode():
+            cpu = apply_pann_model(name, tree, wav[:1], lens[:1])
+        out[name] = check(name, to_torch(tree, dev), cpu)
+        if name in registry_archs:
+            trees[name], cpu_refs[name] = tree, cpu
+        print(f"  {name}: 8 x 10 s on the card {out[name]['ms']:.2f} ms a call; frame_embs "
+              f"{tuple(out[name]['frame_embs'])}; card vs CPU on one clip, max error relative to "
+              f"the largest value {({k: f'{v:.1e}' for k, v in out[name]['rel_err'].items()})} "
+              f"(tol {PANN_REL_TOL})", flush=True)
+        assert out[name]["frame_embs"][:2] == [BATCH, width]
+
+    ckpt_dir = os.path.join(work_dir, "pann_ckpts")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    saved_env = os.environ.get("CONETTE_CKPT_DIR")
+    os.environ["CONETTE_CKPT_DIR"] = ckpt_dir
+    try:
+        for reg in REGISTRY_ZOO:
+            name = PANN_REGISTRY[reg].architecture.lower()
+            want = to_numpy(trees[name])
+            path = os.path.join(ckpt_dir, PANN_REGISTRY[reg].fname)
+            torch.save({"model": {k: torch.from_numpy(v) for k, v in reference_pann_state(want).items()}},
+                       path)
+            t0 = time.perf_counter()
+            loaded = load_registry_pann(reg)
+            load_s = time.perf_counter() - t0
+            os.remove(path)
+            got, staged = dict(named_leaves(loaded)), dict(named_leaves(want))
+            assert got.keys() == staged.keys() and all(
+                np.asarray(v).tobytes() == np.asarray(staged[k]).tobytes() for k, v in got.items()), reg
+            rec = check(name, to_torch(loaded, dev), cpu_refs[name])
+            out[f"registry/{reg}"] = dict(rec, load_s=load_s)
+            print(f"  load_registry_pann({reg!r}) from a staged reference state dict in "
+                  f"{load_s:.2f} s, equal to the staged tree; on the card {rec['ms']:.2f} ms a "
+                  f"call, max error relative to the CPU {max(rec['rel_err'].values()):.1e}", flush=True)
+    finally:
+        if saved_env is None:
+            os.environ.pop("CONETTE_CKPT_DIR")
+        else:
+            os.environ["CONETTE_CKPT_DIR"] = saved_env
     return out
 
 
@@ -1729,7 +1889,7 @@ def prepare_phase(work_dir: str) -> dict:
     assert len(captions["cands"]) == 2 and np.isfinite(captions["lprobs"]).all()
     del model
 
-    panns = pann_check(torch.device("cuda"))
+    panns = pann_check(torch.device("cuda"), work_dir)
     frontends = frontends_check(torch.device("cuda"))
     return dict(write_s=write_s, native=native, prepare=calls, prepare_launches=prepare_launches,
                 rows_checked=PREP_ROWS_CHECKED, row_max_abs_err=row_err, cpu_rows_s=cpu_s,
@@ -1845,10 +2005,15 @@ def main() -> int:
                k["serving_replay_calls"], k["export_launches"], k["training_launches"],
                k["training_eager_launches"]) <= 0:
             raise AssertionError(f"{k['name']} never launched on a path")
-    print(json.dumps({"card": smi, "records": records, "main_path": summary,
-                      "serving": served, "export": exported, "training": trained,
-                      "prepare": prepared},
-                     default=float), flush=True)
+    details = json.dumps({"card": smi, "records": records, "main_path": summary,
+                          "serving": served, "export": exported, "training": trained,
+                          "prepare": prepared}, default=float)
+    # the whole line, which is longer than the end of the output that a
+    # caller may keep
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "chip_smoke_details.json"), "w") as f:
+        f.write(details + "\n")
+    print(details, flush=True)
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,9 @@ Every encoder returns ``{frame_embs (B, C, T'), frame_embs_lens (B,),
 clipwise_output (B, 527)}`` and ``embedding`` (B, C), or, with the
 attention head, ``framewise_output`` (B, mel frames, 527). The log-mel
 frontend is the plain one (``ops/frontend.py``), as in the JAX package.
-The names whose architectures live in the zoo (``models/pann_zoo.py``)
-raise ``NotImplementedError`` until it is ported.
+``build_pann_model`` and ``apply_pann_model`` take every name of
+``PANN_ZOO_NAMES``; the other architectures and the decision-level
+max/avg heads live in ``models/pann_zoo.py``.
 """
 
 from __future__ import annotations
@@ -37,13 +38,6 @@ from conette_torch.models.layers import (
     conv2d_init,
     linear,
     linear_init,
-)
-from conette_torch.models.pann_zoo import (
-    PANN_LOGMEL32,
-    PANN_LOGMEL128,
-    PANN_LOGMEL_8K,
-    PANN_LOGMEL_16K,
-    _pool1d_same,
 )
 from conette_torch.ops.frontend import LogMelConfig, logmel_spectrogram
 
@@ -74,7 +68,32 @@ def conv_block(params: Params, x: torch.Tensor, *, pool_size: tuple[int, int] = 
     y = torch.relu(batch_norm_inference(params["bn2"], y))
     if pool_size == (1, 1):
         return y
-    return F.avg_pool2d(y.permute(0, 3, 1, 2), pool_size).permute(0, 2, 3, 1).contiguous()
+    return avg_pool_nhwc(y, pool_size)
+
+
+def avg_pool_nhwc(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Average pool of NHWC with stride = window (VALID: odd extents floor)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1).contiguous()
+
+
+def frame_lens(frames: torch.Tensor, input_time_len: int,
+               waveform_lens: torch.Tensor | None) -> torch.Tensor:
+    """Frame counts of (B, T', C) ``frames``: T' for all, or each input
+    length over the reduction ``input_time_len // T'``, rounded half to even
+    (``torch.round``, as ``jnp.round``)."""
+    n_out = frames.shape[1]
+    if waveform_lens is None:
+        return torch.full((frames.shape[0],), n_out, dtype=torch.int32, device=frames.device)
+    reduction = max(input_time_len // max(n_out, 1), 1)
+    return torch.round(waveform_lens.float() / reduction).to(torch.int32)
+
+
+def clip_head(params: Params, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(clip probabilities, embedding) of (B, T', C) frames: the max + mean
+    over frames → relu(fc1) → sigmoid(fc_audioset); the reference returns
+    the penultimate relu(fc1) activations as "embedding" (models.py:271-277)."""
+    h = torch.relu(linear(params["fc1"], frames.amax(dim=1) + frames.mean(dim=1)))
+    return torch.sigmoid(linear(params["fc_audioset"], h)), h
 
 
 # --------------------------------------------------------------------- init
@@ -161,16 +180,11 @@ def pann_apply(
         x = conv_block(block, x, pool_size=pool)
 
     frames = x.float().mean(dim=2)  # (B, T', C): the frequency mean
-    n_out = frames.shape[1]
-    reduction = max(input_time_len // max(n_out, 1), 1)
-    if waveform_lens is None:
-        lens = torch.full((frames.shape[0],), n_out, dtype=torch.int32, device=frames.device)
-    else:
-        # torch.round is half-to-even, as jnp.round
-        lens = torch.round(waveform_lens.float() / reduction).to(torch.int32)
-
-    out: dict[str, torch.Tensor] = {"frame_embs": frames.transpose(1, 2), "frame_embs_lens": lens}
+    out: dict[str, torch.Tensor] = {"frame_embs": frames.transpose(1, 2),
+                                    "frame_embs_lens": frame_lens(frames, input_time_len, waveform_lens)}
     if "att" in params:
+        from conette_torch.models.pann_zoo import _framewise, _pool1d_same
+
         # the Cnn14_DecisionLevelAtt head (cnn14_decisionlevel_att.py:225-245):
         # k3/s1/p1 max + avg smoothing over frames → fc1 → per-frame 2048-wide
         # embeddings (this encoder's captioning frame_embs) → AttBlock's
@@ -181,29 +195,15 @@ def pann_apply(
         att = torch.softmax(torch.clamp(linear(params["att"]["att"], h), -10.0, 10.0), dim=1)
         cla = torch.sigmoid(linear(params["att"]["cla"], h))
         out["clipwise_output"] = torch.sum(att * cla, dim=1)
-        # framewise: each segment repeated 32 times, then cut or padded with
-        # the last to the mel frame count (pann_utils/pytorch_utils.py
-        # interpolate + pad_framewise_output)
         mel_frames = input_time_len // logmel_cfg.hop_length + 1 if waveform_input else input_time_len
-        up = torch.repeat_interleave(cla, 32, dim=1)
-        if up.shape[1] < mel_frames:
-            tail = up[:, -1:].expand(-1, mel_frames - up.shape[1], -1)
-            up = torch.cat([up, tail], dim=1)
-        else:
-            up = up[:, :mel_frames]
-        out["framewise_output"] = up
+        out["framewise_output"] = _framewise(cla, mel_frames)
     else:
-        h = frames.amax(dim=1) + frames.mean(dim=1)
-        h = torch.relu(linear(params["fc1"], h))
-        out["clipwise_output"] = torch.sigmoid(linear(params["fc_audioset"], h))
-        # the reference returns the penultimate relu(fc1) activations as
-        # "embedding" (models.py:271-277)
-        out["embedding"] = h
+        out["clipwise_output"], out["embedding"] = clip_head(params, frames)
     return out
 
 
 #: the reference zoo (nn/pann_utils/models.py, with the embedding-width and
-#: frontend variants), as the JAX package's build_pann_model accepts it
+#: frontend variants), every name buildable by build_pann_model
 PANN_ZOO_NAMES = frozenset(
     {
         "cnn6", "cnn10", "cnn14", "cnn14_16k", "cnn14_8k", "cnn14_mel32",
@@ -217,52 +217,46 @@ PANN_ZOO_NAMES = frozenset(
     }
 )
 
-#: the names whose forward is ``pann_apply`` with a frontend configuration
-_PANN_APPLY_CFGS = {
-    "cnn10": PANN_LOGMEL, "cnn14": PANN_LOGMEL, "cnn14_decisionlevelatt": PANN_LOGMEL,
-    "cnn14_att": PANN_LOGMEL, "cnn14_emb512": PANN_LOGMEL, "cnn14_emb128": PANN_LOGMEL,
-    "cnn14_emb32": PANN_LOGMEL, "cnn14_no_specaug": PANN_LOGMEL,
-    "cnn14_no_dropout": PANN_LOGMEL, "cnn14_mixup_time_domain": PANN_LOGMEL,
-    "cnn14_16k": PANN_LOGMEL_16K, "cnn14_8k": PANN_LOGMEL_8K,
-    "cnn14_mel32": PANN_LOGMEL32, "cnn14_mel128": PANN_LOGMEL128,
-}
-
-#: the names whose architecture or head lives in ``models/pann_zoo.py``
-ZOO_ONLY_NAMES = PANN_ZOO_NAMES - _PANN_APPLY_CFGS.keys()
-
-
-def _require_ported(name: str) -> str:
-    name_l = name.lower()
-    if name_l in ZOO_ONLY_NAMES:
-        raise NotImplementedError(
-            f"PANN model {name!r} lives in models/pann_zoo.py, which conette_torch "
-            "has not ported yet (ROADMAP Queue 1); the ported names are "
-            f"{sorted(_PANN_APPLY_CFGS)}")
-    if name_l not in _PANN_APPLY_CFGS:
-        raise ValueError(f"Unknown PANN model {name!r}. (expected one of {sorted(PANN_ZOO_NAMES)})")
-    return name_l
-
 
 def build_pann_model(name: str, gen: torch.Generator | None = None) -> tuple[Params, int]:
     """(params, frame embedding width) by registry name (reference
     ``nn/pann_utils/hub.py:14-56``)."""
+    from conette_torch.models import pann_zoo as zoo
+
     if gen is None:
         gen = torch.Generator().manual_seed(0)
-    name_l = _require_ported(name)
+    name_l = name.lower()
     if name_l == "cnn10":
         return cnn10_init(gen), CNN10_CHANNELS[-1]
     if name_l in ("cnn14_decisionlevelatt", "cnn14_att"):
         return cnn14_att_init(gen), CNN14_CHANNELS[-1]
     if name_l.startswith("cnn14_emb"):
         return cnn14_emb_init(gen, int(name_l.removeprefix("cnn14_emb"))), CNN14_CHANNELS[-1]
-    if name_l == "cnn14_mel32":
-        return cnn14_init(gen, n_mels=32), CNN14_CHANNELS[-1]
-    if name_l == "cnn14_mel128":
-        return cnn14_init(gen, n_mels=128), CNN14_CHANNELS[-1]
-    # cnn14, and the variants with Cnn14's parameters: the 16/8 kHz frontends
-    # (models.py:3134-3379) and the training-time differences (no
-    # SpecAugment, no dropout, waveform mixup; models.py:282-496, 3380-3497)
-    return cnn14_init(gen), CNN14_CHANNELS[-1]
+    if name_l in ("cnn14_mel32", "cnn14_mel128"):
+        return cnn14_init(gen, n_mels=int(name_l.removeprefix("cnn14_mel"))), CNN14_CHANNELS[-1]
+    if name_l in ("cnn14", "cnn14_16k", "cnn14_8k", "cnn14_no_specaug", "cnn14_no_dropout",
+                  "cnn14_mixup_time_domain", "cnn14_decisionlevelmax", "cnn14_decisionlevelavg"):
+        # Cnn14's parameters: the 16/8 kHz frontends (models.py:3134-3379),
+        # the training-time differences (no SpecAugment, no dropout, waveform
+        # mixup; models.py:282-496, 3380-3497) and the decision-level max/avg
+        # heads (pann_zoo.cnn14_decisionlevel_apply, models.py:3731-3990)
+        return cnn14_init(gen), CNN14_CHANNELS[-1]
+    zoo_inits = {
+        "resnet22": (zoo.resnet22_init, 2048), "resnet38": (zoo.resnet38_init, 2048),
+        "resnet54": (zoo.resnet54_init, 2048), "mobilenetv1": (zoo.mobilenetv1_init, 1024),
+        "mobilenetv2": (zoo.mobilenetv2_init, 1280), "dainet19": (zoo.dainet_init, 512),
+        "cnn6": (zoo.cnn6_init, 512), "wavegram_cnn14": (zoo.wavegram_cnn14_init, 2048),
+        "wavegram_logmel_cnn14": (zoo.wavegram_logmel_cnn14_init, 2048),
+        "wavegram_logmel128_cnn14": (zoo.wavegram_logmel128_cnn14_init, 2048),
+    }
+    if name_l in zoo_inits:
+        init, width = zoo_inits[name_l]
+        return init(gen), width
+    if name_l in ("leenet11", "leenet24"):
+        return zoo.leenet_init(gen, name_l), 256 if name_l == "leenet11" else 1024
+    if name_l in ("res1dnet31", "res1dnet51"):
+        return zoo.res1dnet_init(gen, name_l), 2048
+    raise ValueError(f"Unknown PANN model {name!r}. (expected one of {sorted(PANN_ZOO_NAMES)})")
 
 
 def apply_pann_model(
@@ -275,6 +269,36 @@ def apply_pann_model(
 ) -> dict[str, torch.Tensor]:
     """The forward of a ``build_pann_model`` name, with its frontend
     configuration (reference ``classtype(**kwargs)`` + ``model(input)``,
-    ``pann_utils/hub.py:14-56``)."""
-    return pann_apply(params, waveform, waveform_lens, logmel_cfg=_PANN_APPLY_CFGS[_require_ported(name)],
-                      compute_dtype=compute_dtype)
+    ``pann_utils/hub.py:14-56``). LeeNet, DaiNet, Res1dNet and
+    Wavegram_Cnn14 take no ``waveform_lens``, as in the JAX package: their
+    ``frame_embs_lens`` are the full frame count."""
+    from conette_torch.models import pann_zoo as zoo
+
+    name_l = name.lower()
+    kw: dict[str, Any] = dict(compute_dtype=compute_dtype)
+    cfgs = {"cnn14_16k": zoo.PANN_LOGMEL_16K, "cnn14_8k": zoo.PANN_LOGMEL_8K,
+            "cnn14_mel32": zoo.PANN_LOGMEL32, "cnn14_mel128": zoo.PANN_LOGMEL128}
+    if name_l in ("cnn10", "cnn14", "cnn14_decisionlevelatt", "cnn14_att", "cnn14_emb512",
+                  "cnn14_emb128", "cnn14_emb32", "cnn14_no_specaug", "cnn14_no_dropout",
+                  "cnn14_mixup_time_domain") or name_l in cfgs:
+        return pann_apply(params, waveform, waveform_lens, logmel_cfg=cfgs.get(name_l, PANN_LOGMEL),
+                          **kw)
+    if name_l in ("cnn14_decisionlevelmax", "cnn14_decisionlevelavg"):
+        return zoo.cnn14_decisionlevel_apply(params, waveform, waveform_lens,
+                                             pooling=name_l.removeprefix("cnn14_decisionlevel"), **kw)
+    if name_l in ("resnet22", "resnet38", "mobilenetv1"):
+        arch = "mobilenetv1" if name_l == "mobilenetv1" else "resnet22"
+        return zoo.pann_zoo_apply(params, waveform, waveform_lens, arch=arch, **kw)
+    if name_l == "wavegram_logmel128_cnn14":
+        return zoo.wavegram_logmel_cnn14_apply(params, waveform, waveform_lens,
+                                               logmel_cfg=zoo.PANN_LOGMEL128, **kw)
+    with_lens = {"resnet54": zoo.resnet54_apply, "mobilenetv2": zoo.mobilenetv2_apply,
+                 "cnn6": zoo.cnn6_apply, "wavegram_logmel_cnn14": zoo.wavegram_logmel_cnn14_apply}
+    if name_l in with_lens:
+        return with_lens[name_l](params, waveform, waveform_lens, **kw)
+    raw = {"leenet11": zoo.leenet_apply, "leenet24": zoo.leenet_apply,
+           "dainet19": zoo.dainet_apply, "res1dnet31": zoo.res1dnet_apply,
+           "res1dnet51": zoo.res1dnet_apply, "wavegram_cnn14": zoo.wavegram_cnn14_apply}
+    if name_l in raw:
+        return raw[name_l](params, waveform, **kw)
+    raise ValueError(f"Unknown PANN model {name!r}.")

@@ -7,6 +7,12 @@ conv weights. ``conette_tpu`` holds numpy/JAX arrays in it, the port holds
 tensors. This module maps one to the other leaf by leaf without touching
 the bits, so a ``params.npz`` written by either package loads unchanged in
 the other, and ``to_numpy(to_torch(tree))`` equals ``tree`` bit for bit.
+
+The PANN zoo's trees also hold Python values that steer the forward (a
+stride, a layer kind, a flag). Those stay Python values both ways: a bool,
+int or str leaf, or a 0-d bool, integer or string array (what
+``params.npz`` makes of one), is never a tensor, so the forward branches on
+it without reading the device.
 """
 
 from __future__ import annotations
@@ -45,23 +51,37 @@ def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
-def to_torch(tree: Any, device: torch.device | str = "cpu") -> Any:
-    """numpy (or array-like) leaves → tensors on ``device``, dtype kept."""
+#: leaves kept as Python values, and the 0-d array kinds read back as them
+_STATIC_TYPES = (bool, int, str)
+_STATIC_KINDS = "biuU"
 
-    def leaf(a: Any) -> torch.Tensor:
+
+def to_torch(tree: Any, device: torch.device | str = "cpu") -> Any:
+    """numpy (or array-like) leaves → tensors on ``device``, dtype kept;
+    steering values → Python values."""
+
+    def leaf(a: Any) -> Any:
         if isinstance(a, torch.Tensor):
             return a.to(device)
+        if isinstance(a, _STATIC_TYPES):
+            return a
+        a = np.asarray(a)
+        if a.ndim == 0 and a.dtype.kind in _STATIC_KINDS:
+            return a.item()
         return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
 
     return map_tree(leaf, tree)
 
 
 def to_numpy(tree: Any) -> Any:
-    """Tensor leaves → numpy arrays on the host, dtype kept."""
+    """Tensor leaves → numpy arrays on the host, dtype kept; Python bool,
+    int and str leaves kept as they are."""
 
-    def leaf(t: Any) -> np.ndarray:
+    def leaf(t: Any) -> Any:
         if isinstance(t, torch.Tensor):
             return t.detach().cpu().numpy().copy()
+        if isinstance(t, _STATIC_TYPES):
+            return t
         return np.asarray(t)
 
     return map_tree(leaf, tree)

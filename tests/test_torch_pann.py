@@ -59,7 +59,14 @@ def _wave(n: int = 32_000, b: int = 2) -> tuple[np.ndarray, np.ndarray]:
     return (0.1 * rng.standard_normal((b, n))).astype(np.float32), np.array([n, n * 3 // 5][:b])
 
 
-@pytest.mark.parametrize("name", sorted(pann.PANN_ZOO_NAMES - pann.ZOO_ONLY_NAMES))
+#: the names whose forward is ``pann_apply`` (the zoo's architectures and
+#: decision-level heads: test_torch_pann_zoo.py)
+CNN_NAMES = sorted({"cnn10", "cnn14", "cnn14_16k", "cnn14_8k", "cnn14_mel32", "cnn14_mel128",
+                    "cnn14_no_specaug", "cnn14_no_dropout", "cnn14_mixup_time_domain",
+                    "cnn14_emb512", "cnn14_emb128", "cnn14_emb32", "cnn14_decisionlevelatt"})
+
+
+@pytest.mark.parametrize("name", CNN_NAMES)
 def test_apply_pann_model_matches_jax(name):
     tree = narrow_tree(name)
     wav, lens = _wave()
@@ -103,16 +110,6 @@ def test_build_pann_model_gives_jax_s_structure(name):
     assert width == jax_width
     assert {k: v.shape for k, v in flatten_pytree(to_numpy(got)).items()} == {
         k: v.shape for k, v in flatten_pytree(_np(want)).items()}
-
-
-@pytest.mark.parametrize("name", sorted(pann.ZOO_ONLY_NAMES))
-def test_zoo_architectures_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        pann.build_pann_model(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        pann.apply_pann_model(name, {}, torch.zeros(1, 3200))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        convert_pann.convert_pann({}, name)
 
 
 def _oihw(w):
