@@ -102,9 +102,25 @@ Phases (any failure exits non-zero):
    each with ``load_registry_pann`` (equal to the staged tree bit for bit)
    and run it on the card against the same CPU reference; run
    ``get_frontend`` for all six names on one clip, card against CPU;
-8. print a details JSON line (also written to
+8. the parallel layer (run right after phase 4, on its corpus): (a) in a
+   one-process NCCL group at full width, ``make_sharded_caption_fn`` on a
+   1 x 1 mesh over 8 x 10 s clips gives ``caption_batch``'s tokens bit for
+   bit, launches every kernel as it captures and runs 1 log-mel, 18 block
+   and 3 seam kernels in a profiled call; ``utils/profiling.trace`` around
+   a warm request writes a trace that names the three kernels; and
+   ``make_sharded_train_step`` at batch 512 equals ``make_train_step``
+   (``STEP_TOL``); (b) two processes spawned on the one card over gloo: the
+   DP = 2 step (256 rows a rank) against the one-process step, and
+   ``caption_corpus(mesh=)`` over phase 4's 32 files against one process
+   captioning 4 rows a program (each rank's share of a batch of 8); (c)
+   ``train/tune.find_max_batch_size`` on the production step from 512 rows;
+9. print a details JSON line (also written to
    ``chiprun_out/chip_smoke_details.json``), the card line, the ``kernels``
    JSON line and, last, the device JSON line.
+
+Beside ``main``: ``parallel_alone()`` runs phase 8 on its own, and
+``multicard()`` holds the parallel layer across the four cards of a host
+(NCCL, one process a card) to one card.
 """
 
 from __future__ import annotations
@@ -586,6 +602,10 @@ def reset_launches() -> None:
 # part of the same call)
 CALL_MARKERS = {"logmel": "logmel_bf16_kernel", "convnext_block": "convnext_block_kernel<",
                 "downsample": "seam_kernel<"}
+# a train step's kernels by what they do, by name in a profile: the random
+# draws (``torch.rand``'s kernel), NCCL's all-reduce and all-gather
+STEP_KINDS = {"draws": ("distribution_elementwise",), "all_reduce": ("AllReduce",),
+              "all_gather": ("AllGather",)}
 OUR_KERNELS = {"logmel": ("logmel_bf16_kernel",),
                "convnext_block": ("block_pack_kernel", "block_dwln_kernel",
                                   "convnext_block_kernel", "block_reduce_kernel"),
@@ -600,24 +620,21 @@ def profiled(run) -> dict:
     the number of calls of each (``CALL_MARKERS``)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
 
-    # a trace that starts with the run can miss its first kernels: a warm-up
-    # step of one small kernel, then the run as the step that is kept
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        torch.zeros(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        prof.step()
+    from conette_torch.utils.profiling import OPENING_KERNEL_NAME, active_step, profiler
+
+    # the run as the profiler's one active step, after the kernels that open
+    # the window (a trace loses its window's first kernel records)
+    with profiler() as prof, active_step(prof):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        prof.step()
     events = prof.key_averages()
     # kernel rows only: CPU op rows carry their kernels' time as well
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
-            if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")
+            and OPENING_KERNEL_NAME not in e.key]
     device = sum(ms for _, ms, _ in rows)
     top = sorted(rows, key=lambda r: -r[1])[:5]
     return {
@@ -627,6 +644,8 @@ def profiled(run) -> dict:
                     for name, names in OUR_KERNELS.items()},
         "calls": {name: sum(n for k, _, n in rows if marker in k)
                   for name, marker in CALL_MARKERS.items()},
+        "kinds_ms": {kind: sum(ms for k, ms, _ in rows if any(n in k for n in names))
+                     for kind, names in STEP_KINDS.items()},
         # every kernel row of either log-mel kernel (bf16 or f32)
         "logmel_rows": [[k, n, round(ms, 4)] for k, ms, n in rows if "logmel" in k],
         # the custom ops' calls, as the dispatcher records them (none in a
@@ -869,17 +888,10 @@ CORPUS_TASKS = ("clotho", "audiocaps", "macs", "wavcaps_freesound")
 CORPUS_RUNS = 3
 
 
-def serve_corpus(model, work_dir: str) -> dict:
-    """Phase 4: write the corpus, warm the buckets up (capturing their
-    programs), caption it ``CORPUS_RUNS`` times, then once more under the
-    profiler, which counts the kernel calls of the replayed batches; the
-    host's file decode and resample inside each call (every
-    ``load_resample``: the bucket pass for FLAC, then each batch's loads)
-    is timed apart from the call."""
-    import torch
-
+def write_corpus(work_dir: str) -> tuple[list[str], list[str], dict[int, int]]:
+    """Phase 4's ``CORPUS_FILES`` WAV and FLAC files: their paths, tasks and
+    the count of files in each length bucket."""
     from conette_torch.huggingface.preprocessor import bucket_length
-    from conette_torch.serving import CaptionResult, caption_corpus, warmup
     from conette_torch.utils.audio_io import save_wav
     from conette_torch.utils.flac import save_flac
 
@@ -895,6 +907,21 @@ def serve_corpus(model, work_dir: str) -> dict:
         tasks.append(CORPUS_TASKS[(i // 2) % 4])
         blen = bucket_length(int(secs * 32000))
         buckets[blen] = buckets.get(blen, 0) + 1
+    return paths, tasks, buckets
+
+
+def serve_corpus(model, work_dir: str) -> dict:
+    """Phase 4: write the corpus, warm the buckets up (capturing their
+    programs), caption it ``CORPUS_RUNS`` times, then once more under the
+    profiler, which counts the kernel calls of the replayed batches; the
+    host's file decode and resample inside each call (every
+    ``load_resample``: the bucket pass for FLAC, then each batch's loads)
+    is timed apart from the call."""
+    import torch
+
+    from conette_torch.serving import CaptionResult, caption_corpus, warmup
+
+    paths, tasks, buckets = write_corpus(work_dir)
     n_batches = sum(-(-count // BATCH) for count in buckets.values())
     assert len(buckets) >= 3 and all(count % BATCH == 0 for count in buckets.values()), buckets
 
@@ -944,7 +971,8 @@ def serve_corpus(model, work_dir: str) -> dict:
           f"first: {results[0].caption!r} ({results[0].task})", flush=True)
     graphs = {k: v for k, v in graph_records(model).items() if "corpus" in k}
     print(f"  corpus graphs: {graphs}", flush=True)
-    return dict(files=len(paths), buckets=len(buckets), batches=n_batches, warmup_s=warmup_s,
+    return dict(paths=paths, tasks=tasks, files=len(paths), buckets=len(buckets), batches=n_batches,
+                warmup_s=warmup_s,
                 graphs=graphs, runs=runs, clips_per_s_median=median, launches=launches,
                 replay_calls=prof["calls"], profiled_call_busy_share=prof["busy_share"],
                 captions=[[r.task, r.caption, r.lprob] for r in results])
@@ -958,10 +986,10 @@ def export_phase(model, work_dir: str) -> dict:
     encoder's clip probabilities are printed beside, as the gap a dtype
     that drifted would show); its profile must count 1 + 18 + 3 custom-op
     calls and wrapper launches, and 18 + 3 block and seam kernel calls.
-    The trace of an eager launch of the log-mel kernel late in this run
-    lacks its row in some profiles and not in others, and always in this
-    replay's (``PERF.md`` §7): its rows are printed, beside those of a
-    profile of the eager bf16 encoder on the same batch."""
+    The log-mel kernel's rows are printed, beside those of a profile of the
+    eager bf16 encoder on the same batch: before the profile's window was
+    opened by kernels of its own (``utils/profiling.active_step``) this
+    replay's lacked it in every run (``PERF.md`` §6)."""
     import torch
 
     from conette_torch.export import ExportedCaptioner, save_exported
@@ -1897,6 +1925,597 @@ def prepare_phase(work_dir: str) -> dict:
                 cands=captions["cands"], pann=panns, frontends=frontends)
 
 
+# phase 8: the parallel layer. The machine has one card, and NCCL takes one
+# rank a device: a one-process NCCL group drives the mesh path at full
+# width, and two processes share the card over gloo for the collectives.
+PARALLEL_LR = 5e-4
+PARALLEL_TIMEOUT_S = 300
+TUNE_START, TUNE_CAP = 512, 65536
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_step(model_cfg, mesh=None, timed: int = 5, dev=None, split: bool = False) -> dict:
+    """One production step (dropout, mixup with drawn λ and pairing, clip 1,
+    AdamW at ``PARALLEL_LR``, wd 2.0) at batch ``BSIZE`` from seeds on this
+    process's card, alone or, with ``mesh``, sharded: the global loss, the
+    global batch's gradient (drawn from a copy of the generator's state)
+    and the parameters after the step, whole, as numpy arrays; then the
+    wall time of ``timed`` more steps, each synchronised (the median);
+    with ``split``, one more step under the profiler (``profiled``: its
+    random draws, all-reduce and all-gather kernels apart).
+    ``dev``: this process's card unless given (the CPU rehearses it)."""
+    import torch
+
+    from conette_torch.models.conette import conette_init
+    from conette_torch.parallel.distributed import all_reduce
+    from conette_torch.parallel.mesh import axis, full_value, leaf_sharding, shard_batch
+    from conette_torch.train import optim, step
+    from conette_torch.train.objective import training_loss
+    from conette_torch.weights import named_leaves, to_torch
+
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    params = to_torch(conette_init(torch.Generator().manual_seed(41), model_cfg), dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(model_cfg, np.random.default_rng(42)).items()}
+    opt, _ = optim.get_optimizer(params, lr=PARALLEL_LR, weight_decay=2.0, sched_name="none")
+    state = step.init_train_state(params, opt)
+    if mesh is None:
+        fn = step.make_train_step(model_cfg, grad_clip_norm=1.0)
+    else:
+        batch = shard_batch(batch, mesh)
+        state, fn = step.make_sharded_train_step(model_cfg, opt, mesh, state, batch,
+                                                 grad_clip_norm=1.0)
+    gen = torch.Generator(dev).manual_seed(43)
+    start = gen.get_state()
+    named = named_leaves(state.params)
+    grads = torch.autograd.grad(training_loss(state.params, model_cfg, batch, gen, mesh=mesh),
+                                [t for _, t in named])
+    if mesh is not None:  # the whole gradient of the global batch
+        grads = [full_value(all_reduce(g, axis(mesh, "data").group), leaf_sharding(k, g, mesh), mesh)
+                 for (k, _), g in zip(named, grads)]
+    gen.set_state(start)
+    sync()
+    t0 = time.perf_counter()
+    state, metrics = fn(state, batch, gen)
+    loss = metrics["train/loss"].item()
+    seconds = time.perf_counter() - t0
+    out = {"loss": loss, "seconds": seconds,
+           "grads": {k: g.cpu().numpy() for (k, _), g in zip(named, grads)},
+           # copies: the timed steps below update the leaves in place
+           "params": {k: t.detach().cpu().numpy().copy()
+                      for k, t in named_leaves(step.gather_params(state.params, mesh))}}
+    times = []
+    for _ in range(timed):
+        sync()
+        t0 = time.perf_counter()
+        fn(state, batch, gen)
+        sync()
+        times.append(time.perf_counter() - t0)
+    out["step_ms"] = statistics.median(times) * 1e3
+    if split:
+        prof = profiled(lambda: fn(state, batch, gen))
+        out["split"] = {k: prof[k] for k in ("wall_ms", "device_ms", "kinds_ms", "top")}
+    return out
+
+
+def same_step(want: dict, got: dict, what: str) -> dict:
+    """``got`` against ``want`` as ``step_card_vs_cpu`` holds them: the loss,
+    the gradient and the parameters relative to the largest value of their
+    kind; elements whose gradient sign is rounding (the two differ by as
+    much as the gradient) are held to 2·lr apart."""
+    gdiff = {k: np.abs(got["grads"][k] - want["grads"][k]) for k in want["grads"]}
+    pdiff = {k: np.abs(got["params"][k] - want["params"][k]) for k in want["params"]}
+    rounding = {k: (gdiff[k] > 0) & (gdiff[k] >= np.abs(want["grads"][k])) for k in gdiff}
+    res = {
+        "loss_want": want["loss"], "loss_got": got["loss"],
+        "loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+        "grads": max(float(d.max()) for d in gdiff.values())
+        / max(float(np.abs(g).max()) for g in want["grads"].values()),
+        "params": max(float(np.where(rounding[k], 0.0, pdiff[k]).max()) for k in pdiff)
+        / max(float(np.abs(p).max()) for p in want["params"].values()),
+        "sign_rounding_elements": {k: int(m.sum()) for k, m in rounding.items() if m.any()},
+        "sign_rounding_max_abs_diff": max((float(pdiff[k][m].max()) for k, m in rounding.items()
+                                           if m.any()), default=0.0),
+    }
+    print(f"  {what}: loss {res['loss_got']:.7f} vs {res['loss_want']:.7f} (rel {res['loss']:.2e}, "
+          f"tol {STEP_TOL['loss']}), grads rel {res['grads']:.2e} (tol {STEP_TOL['grads']}), "
+          f"params rel {res['params']:.2e} (tol {STEP_TOL['params']}), sign-rounding elements "
+          f"{sum(res['sign_rounding_elements'].values())} at most "
+          f"{res['sign_rounding_max_abs_diff']:.2e} apart (tol {2 * PARALLEL_LR})", flush=True)
+    for k, tol in STEP_TOL.items():
+        assert res[k] <= tol, (what, k, res[k], tol)
+    assert res["sign_rounding_max_abs_diff"] <= 2 * PARALLEL_LR, (what, res)
+    return res
+
+
+def parallel_rank(rank: int, world: int, port: int, ckpt: str, paths: list, tasks: list,
+                  model_cfg) -> dict:
+    """One of two processes sharing the card over gloo: the DP = 2 step on
+    its 256 rows, then ``caption_corpus(mesh=)`` over the corpus."""
+    import torch
+
+    import conette_torch
+    from conette_torch.parallel.distributed import initialize
+    from conette_torch.parallel.mesh import make_mesh
+    from conette_torch.serving import caption_corpus
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(f"127.0.0.1:{port}", world, rank, local_rank=0, device="cuda", backend="gloo",
+               timeout_s=PARALLEL_TIMEOUT_S)
+    mesh = make_mesh(world)
+    step_res = parallel_step(model_cfg, mesh)
+    model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    results = caption_corpus(model, paths, task=tasks, batch_size=BATCH, mesh=mesh)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    return {"step": step_res if rank == 0 else {"loss": step_res["loss"]},
+            "step_s": step_res["seconds"], "step_ms": step_res["step_ms"], "corpus_s": corpus_s,
+            "captions": [[r.fname, r.task, r.caption, r.lprob] for r in results]}
+
+
+def rank_entry(work, rank: int, world: int, port: int, args: tuple, out) -> None:
+    """``work(rank, world, port, *args)`` in a spawned process: its result, or
+    its traceback, goes to ``out``; its process group is destroyed on the
+    way out."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        out.put((rank, None, work(rank, world, port, *args)))
+    except BaseException:
+        out.put((rank, traceback.format_exc(), None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(work, world: int, args: tuple, meanwhile=lambda: None) -> tuple[list, Any]:
+    """``work`` in ``world`` spawned processes (``rank_entry``), and
+    ``meanwhile()`` in this one while they run; a failure or a group that
+    outlives ``PARALLEL_TIMEOUT_S`` fails the phase, and no process is
+    left."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=rank_entry, args=(work, r, world, port, args, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    here = None
+    try:
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        here = meanwhile()
+        while len(results) < world:
+            rank, err, res = out.get(timeout=max(deadline - time.monotonic(), 1.0))
+            if err is not None:
+                raise AssertionError(f"rank {rank} failed:\n{err}")
+            results[rank] = res
+    except queue.Empty:
+        raise AssertionError(f"the {world} processes did not finish in {PARALLEL_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)], here
+
+
+def trace_names(path: str) -> dict:
+    """How many events of each kernel's main function a Chrome trace holds."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {name: sum(1 for e in events if marker in str(e.get("name", "")) and e.get("cat") == "kernel")
+            for name, marker in CALL_MARKERS.items()}
+
+
+def parallel_phase(ckpt: str, corpus: dict, work_dir: str, smi: str) -> dict:
+    """Phase 8: (a) a one-process NCCL group at full width: the 1 x 1 mesh's
+    ``make_sharded_caption_fn`` against ``caption_batch`` (bit-equal tokens,
+    18 + 3 + 1 kernels in a profiled call) and ``make_sharded_train_step``
+    against ``make_train_step`` at batch 512; (b) two processes sharing the
+    card over gloo: the DP = 2 step (256 rows a rank) and
+    ``caption_corpus(mesh=)`` over phase 4's files against one process;
+    (c) ``utils/profiling.trace`` around a warm request and
+    ``train/tune.find_max_batch_size`` on the production step."""
+    import torch
+    import torch.distributed as dist
+
+    import conette_torch
+    from conette_torch.models.conette import ConetteConfig, conette_init
+    from conette_torch.parallel.distributed import initialize
+    from conette_torch.parallel.mesh import make_mesh
+    from conette_torch.serving import caption_batch, caption_corpus, make_sharded_caption_fn
+    from conette_torch.train.tune import tune_batch_size_for_model
+    from conette_torch.utils.profiling import trace
+    from conette_torch.weights import to_torch
+
+    t_phase = time.perf_counter()
+    model_cfg = ConetteConfig(vocab_size=4000 + 4 + 4)
+    out: dict = {"card": smi}
+
+    # (a) one process, NCCL, full width
+    initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda", backend="nccl")
+    try:
+        mesh = make_mesh(1)
+        model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
+        tasks = ["clotho", "audiocaps", "macs", "wavcaps_freesound"] * 2
+        rng = np.random.default_rng(8)
+        wav, lens = model.preprocessor.load_resample(make_clips(rng, BATCH, 10.0, 44100), 44100)
+        bos = bos_ids(model, tasks)
+        reset_launches()
+        fn = make_sharded_caption_fn(model, mesh, beam_size=3)
+        t0 = time.perf_counter()
+        preds, lprobs = fn(wav, lens, bos)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        out["launches"] = count_launches()
+        done, want_preds, want_lprobs = caption_batch(model, wav, lens, bos, 3)
+        done.synchronize()
+        assert torch.equal(preds, want_preds) and torch.equal(lprobs, want_lprobs), "1 x 1 mesh tokens"
+        prof = profiled(lambda: fn(wav, lens, bos))
+        assert prof["calls"] == {"logmel": 1, "convnext_block": 18, "downsample": 3}, prof["calls"]
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(wav, lens, bos)
+            warm.append((time.perf_counter() - t0) * 1e3)
+        out["sharded_caption"] = {"first_ms": first_ms, "warm_ms": warm, "calls": prof["calls"],
+                                  "tokens_equal_caption_batch": True}
+        print(f"  (a) one-process NCCL group, 1 x 1 mesh: make_sharded_caption_fn on 8 x 10 s "
+              f"equals caption_batch bit for bit; first call {first_ms:.1f} ms (captures; wrapper "
+              f"launches {out['launches']}), warm {[round(x, 1) for x in warm]} ms; a profiled "
+              f"call's kernels {prof['calls']}", flush=True)
+        assert all(v > 0 for v in out["launches"].values()), out["launches"]
+
+        # (c) first part: a trace around one warm request
+        clips = make_clips(rng, BATCH, 10.0, 44100)
+        model(clips, sr=44100, task=tasks)
+        trace_dir = os.path.join(work_dir, "trace")
+        t0 = time.perf_counter()
+        with trace(trace_dir):
+            model(clips, sr=44100, task=tasks)
+        out["trace"] = {"seconds": time.perf_counter() - t0,
+                        "kernel_events": trace_names(os.path.join(trace_dir, "trace.json"))}
+        print(f"  (c) utils/profiling.trace around a warm request: {out['trace']['seconds']:.2f} s, "
+              f"kernel events in its trace.json {out['trace']['kernel_events']}", flush=True)
+        assert all(v > 0 for v in out["trace"]["kernel_events"].values()), out["trace"]
+        del model
+
+        single = parallel_step(model_cfg)
+        sharded = parallel_step(model_cfg, mesh)
+        out["step_1x1"] = same_step(single, sharded, "(a) make_sharded_train_step on a 1 x 1 mesh "
+                                    f"against make_train_step, batch {BSIZE}")
+        out["step_1x1"]["seconds"] = {"single": single["seconds"], "sharded": sharded["seconds"]}
+        out["step_1x1"]["step_ms"] = {"single": single["step_ms"], "sharded": sharded["step_ms"]}
+        print(f"  (a) warm steps (median of 5): alone {single['step_ms']:.2f} ms, on the 1 x 1 mesh "
+              f"{sharded['step_ms']:.2f} ms", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two processes sharing the card over gloo; meanwhile, this process
+    # captions the corpus alone at each rank's 4 rows a program
+    def one_process():
+        model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        results = caption_corpus(model, corpus["paths"], task=corpus["tasks"], batch_size=BATCH // 2)
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ranks, (one_4, one_s) = spawn_ranks(parallel_rank, 2, (ckpt, corpus["paths"], corpus["tasks"],
+                                                         model_cfg), one_process)
+    two_s = time.perf_counter() - t0
+    out["dp2_step"] = same_step(single, ranks[0]["step"], "(b) DP = 2 over gloo, 256 rows a rank, "
+                                "against the one-process step")
+    assert ranks[1]["step"]["loss"] == ranks[0]["step"]["loss"]
+    want4 = [[r.fname, r.task, r.caption, r.lprob] for r in one_4]
+    assert ranks[0]["captions"] == ranks[1]["captions"] == want4, "two-process corpus"
+    same8 = sum(a[2] == b[1] for a, b in zip(ranks[0]["captions"], corpus["captions"]))
+    out["dp2"] = {"seconds": two_s, "step_s": [r["step_s"] for r in ranks],
+                  "step_ms": [r["step_ms"] for r in ranks],
+                  "corpus_s": [r["corpus_s"] for r in ranks], "one_process_corpus_s": one_s,
+                  "files": len(corpus["paths"]),
+                  "captions_equal_one_process_4_rows": True,
+                  "captions_equal_phase4_8_rows": same8}
+    print(f"  (b) two processes over gloo on one card: captions of the {len(corpus['paths'])} files "
+          f"equal one process's at 4 rows a program (each rank's share of a batch of 8), "
+          f"{same8}/{len(corpus['paths'])} equal phase 4's at 8 rows; step "
+          f"{[round(x, 3) for x in out['dp2']['step_s']]} s (warm {[round(x, 1) for x in out['dp2']['step_ms']]} "
+          f"ms), corpus "
+          f"{[round(x, 2) for x in out['dp2']['corpus_s']]} s a rank (one process alone, at the "
+          f"same time: {one_s:.2f} s), {two_s:.1f} s with start-up "
+          f"({smi}). Two ranks sharing one card is no scaling number; multi-card numbers come from "
+          f"multicard() on a host of four cards.", flush=True)
+
+    # (c) second part: the batch-size search on the production step
+    params = to_torch(conette_init(torch.Generator().manual_seed(44), model_cfg), torch.device("cuda"))
+    t0 = time.perf_counter()
+    largest = tune_batch_size_for_model(model_cfg, params, start=TUNE_START, max_bsize=TUNE_CAP)
+    del params
+    torch.cuda.empty_cache()
+    stop = "the cap" if largest * 2 > TUNE_CAP else "out of memory"
+    out["tune"] = {"largest": largest, "stopped_on": stop, "seconds": time.perf_counter() - t0,
+                   "start": TUNE_START, "cap": TUNE_CAP}
+    print(f"  (c) train/tune.find_max_batch_size on the production step: largest batch {largest}, "
+          f"stopped on {stop}, {out['tune']['seconds']:.1f} s", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+
+
+def parallel_alone() -> dict:
+    """Phase 8 on its own, with what it takes from phases 1, 3 and 4 (the
+    kernels, the full-width checkpoint, the corpus and its captions at 8
+    rows a program):
+    ``python3 -c 'import chip_smoke as c; c.parallel_alone()'``."""
+    import torch
+
+    import conette_torch
+    from conette_torch.kernels import _build
+    from conette_torch.serving import caption_corpus
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.library()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
+        ckpt = build_model(work)
+        paths, tasks, _ = write_corpus(work)
+        results = caption_corpus(conette_torch.conette(ckpt, compute_dtype=torch.bfloat16), paths,
+                                 task=tasks, batch_size=BATCH)
+        corpus = {"paths": paths, "tasks": tasks,
+                  "captions": [[r.task, r.caption, r.lprob] for r in results]}
+        out = parallel_phase(ckpt, corpus, work, smi)
+    print(json.dumps(out, default=float), flush=True)
+    return out
+
+
+# the parallel layer across the cards of one host (not part of ``main``,
+# which needs one card): one process a card over NCCL
+MULTICARD_CARDS = 4
+MAIN_TRAIN_EPOCHS = 2
+MAIN_TRAIN_LR = 5e-4  # expt=hp_clotho_v2's pl.lr
+FIT_PARAM_TOL = 1e-4
+
+
+def multicard_rank(rank: int, world: int, port: int, ckpt: str, model_cfg, batch_npz: str) -> dict:
+    """One process a card over NCCL: the data-parallel and the 2-way
+    tensor-parallel steps, then ``make_sharded_caption_fn`` over
+    ``world`` x 8 clips (8 rows a card)."""
+    import torch
+
+    import conette_torch
+    from conette_torch.parallel.distributed import initialize
+    from conette_torch.parallel.mesh import make_mesh
+    from conette_torch.serving import make_sharded_caption_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(f"127.0.0.1:{port}", world, rank, local_rank=rank, device="cuda",
+               timeout_s=PARALLEL_TIMEOUT_S)
+    out = {}
+    for mp in (1, 2):
+        res = parallel_step(model_cfg, make_mesh(world, mp), split=True)
+        out[f"data{world // mp}_model{mp}"] = (
+            res if rank == 0 else {k: res[k] for k in ("loss", "step_ms", "split")})
+    model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
+    batch = np.load(batch_npz)
+    fn = make_sharded_caption_fn(model, make_mesh(world), beam_size=3)
+    preds, lprobs = fn(batch["wav"], batch["lens"], batch["bos"])  # captures
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn(batch["wav"], batch["lens"], batch["bos"])
+        warm.append((time.perf_counter() - t0) * 1e3)
+    out["captions"] = {"preds": preds.numpy(), "lprobs": lprobs.numpy(), "warm_ms": warm}
+    return out
+
+
+def fit_record(run_dir: str) -> dict:
+    """A run directory's per-step train losses, fit seconds, and the best
+    checkpoint's parameters and Adam first moments."""
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in sorted((r for r in recs if "train/loss" in r),
+                                             key=lambda r: r["step"])]
+    fit = next(r for r in recs if "fit_duration_s" in r)
+    best = os.path.join(run_dir, "checkpoints", "best")
+    with np.load(os.path.join(best, "params.npz")) as z:
+        params = {k: z[k] for k in z.files}
+    with np.load(os.path.join(best, "opt_state.npz")) as z:
+        moments = {k[len("state/"):]: z[k] for k in z.files if k.startswith("state/")}
+    return {"losses": losses, "fit_s": fit["fit_duration_s"], "wait_s": fit["fit_batch_wait_s"],
+            "steps": fit["fit_global_step"], "params": params, "moments": moments}
+
+
+def same_fit(a: dict, b: dict, lr: float) -> dict:
+    """The best parameters of two runs of ``fit_record``, as ``same_step``
+    holds a step's: within ``FIT_PARAM_TOL`` of each other (the JAX
+    package's bound for a multi-process fit), apart from the elements whose
+    first moment is rounding (the two runs' ``exp_avg`` differ by as much as
+    it), which are held to Adam's reach, 2·lr a step. The five elements
+    that differ most are listed with both runs' moments."""
+    rows = []
+    res = {"param_max_abs": 0.0, "rounding_elements": {}, "rounding_max_abs": 0.0}
+    for k in a["params"]:
+        diff = np.abs(a["params"][k] - b["params"][k]).reshape(-1)
+        m_a, m_b = (r["moments"][f"{k}/exp_avg"].reshape(-1) for r in (a, b))
+        rounding = (np.abs(m_a - m_b) > 0) & (np.abs(m_a - m_b) >= np.abs(m_a))
+        held = np.where(rounding, 0.0, diff)
+        res["param_max_abs"] = max(res["param_max_abs"], float(held.max()))
+        if rounding.any():
+            res["rounding_elements"][k] = int(rounding.sum())
+            res["rounding_max_abs"] = max(res["rounding_max_abs"], float(diff[rounding].max()))
+        for i in np.argsort(-diff)[:5]:
+            v_a, v_b = (r["moments"][f"{k}/exp_avg_sq"].reshape(-1)[i] for r in (a, b))
+            rows.append({"leaf": k, "index": int(i), "diff": float(diff[i]),
+                         "param": float(a["params"][k].reshape(-1)[i]), "exp_avg": [float(m_a[i]),
+                         float(m_b[i])], "exp_avg_sq": [float(v_a), float(v_b)],
+                         "rounding": bool(rounding[i])})
+    res["largest"] = sorted(rows, key=lambda r: -r["diff"])[:5]
+    res["reach"] = 2 * lr * a["steps"]
+    return res
+
+
+def multicard(cards: int = MULTICARD_CARDS) -> dict:
+    """The parallel layer across ``cards`` cards of one host, one process a
+    card over NCCL (run it in a call that holds them:
+    ``python3 -c 'import chip_smoke as c; c.multicard()'``):
+    the DP = ``cards`` and (``cards`` / 2) x 2 steps at batch ``BSIZE``
+    against one card (``same_step``), ``make_sharded_caption_fn`` over
+    ``cards`` x 8 clips against ``caption_batch`` on one card, 8 rows at a
+    time (bit-equal), and ``torchrun`` of ``conette_torch.train.main`` over
+    the cards against one process on one card (train-b512's packs, the pad
+    shapes fixed: per-step losses within ``STEP_TOL``, the best
+    checkpoint's parameters as ``same_fit`` holds them). Each step is also
+    profiled once on one card and on every rank, its random draws,
+    all-reduce and all-gather kernels apart."""
+    import torch
+
+    import conette_torch
+    from conette_torch.kernels import _build
+    from conette_torch.models.conette import ConetteConfig
+    from conette_torch.serving import caption_batch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
+        raise SystemExit(f"multicard: needs {cards} CUDA cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print("\n".join(smi), flush=True)
+    _build.library()
+    model_cfg = ConetteConfig(vocab_size=4000 + 4 + 4)
+    out: dict = {"cards": smi}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
+        ckpt = build_model(work)
+        model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
+        tasks = ["clotho", "audiocaps", "macs", "wavcaps_freesound"] * (2 * cards)
+        wav, lens = model.preprocessor.load_resample(
+            make_clips(np.random.default_rng(9), BATCH * cards, 10.0, 44100), 44100)
+        bos = bos_ids(model, tasks)
+        want, one_ms = [], []
+        for _ in range(4):  # the first captures
+            t0 = time.perf_counter()
+            want = [caption_batch(model, wav[i:i + BATCH], lens[i:i + BATCH], bos[i:i + BATCH], 3)
+                    for i in range(0, len(wav), BATCH)]
+            for done, _, _ in want:
+                done.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        want_preds = np.concatenate([p.numpy() for _, p, _ in want])
+        want_lprobs = np.concatenate([lp.numpy() for _, _, lp in want])
+        del model
+        batch_npz = os.path.join(work, "batch.npz")
+        np.savez(batch_npz, wav=wav, lens=lens, bos=bos)
+        single = parallel_step(model_cfg, split=True)
+
+        t0 = time.perf_counter()
+        ranks, _ = spawn_ranks(multicard_rank, cards, (ckpt, model_cfg, batch_npz))
+        out["ranks_s"] = time.perf_counter() - t0
+        out["step_ms"] = {"one_card": single["step_ms"]}
+        for name in (f"data{cards}_model1", f"data{cards // 2}_model2"):
+            out[name] = same_step(single, ranks[0][name], f"{name} over {cards} cards (NCCL) against "
+                                  f"one card, batch {BSIZE}")
+            out["step_ms"][name] = [r[name]["step_ms"] for r in ranks]
+        out["step_split"] = {"one_card": single["split"]} | {
+            name: [r[name]["split"] for r in ranks]
+            for name in (f"data{cards}_model1", f"data{cards // 2}_model2")}
+        for name, splits in out["step_split"].items():
+            for i, sp in enumerate(splits if isinstance(splits, list) else [splits]):
+                kinds = sp["kinds_ms"]
+                print(f"  a profiled step, {name}{f' rank {i}' if isinstance(splits, list) else ''}: "
+                      f"wall {sp['wall_ms']:.2f} ms, kernels {sp['device_ms']:.2f} ms: random draws "
+                      f"{kinds['draws']:.2f}, all-reduce {kinds['all_reduce']:.2f}, all-gather "
+                      f"{kinds['all_gather']:.2f}, the rest "
+                      f"{sp['device_ms'] - sum(kinds.values()):.2f}", flush=True)
+        for r in ranks:
+            assert np.array_equal(r["captions"]["preds"], want_preds), "sharded tokens"
+            assert np.array_equal(r["captions"]["lprobs"], want_lprobs), "sharded lprobs"
+        out["captions"] = {"rows": len(wav), "one_card_ms": one_ms[1:],
+                           "cards_ms": [r["captions"]["warm_ms"] for r in ranks]}
+        print(f"  steps at batch {BSIZE} (warm, median of 5): one card {single['step_ms']:.2f} ms; "
+              + "; ".join(f"{k} {[round(x, 2) for x in v]} ms a rank"
+                          for k, v in out["step_ms"].items() if k != "one_card")
+              + f". make_sharded_caption_fn over {len(wav)} clips of 10 s: the tokens and lprobs of "
+              f"caption_batch on one card 8 rows at a time, bit for bit; {cards} cards "
+              f"{[round(x, 1) for x in out['captions']['cards_ms'][0]]} ms a call, one card "
+              f"{[round(x, 1) for x in one_ms[1:]]} ms", flush=True)
+
+        hdf = os.path.join(work, "hdf")
+        os.makedirs(hdf)
+        pack_corpus(hdf)
+        argv = ["expt=hp_clotho_v2", "ckpts.monitor=val/loss", "ckpts.fallback_monitor=val/loss",
+                "ckpts.mode=min", f"trainer.max_epochs={MAIN_TRAIN_EPOCHS}",
+                "trainer.log_every_n_steps=1", f"dm.hdf_root={hdf}",
+                "dm.train_hdfs=[clotho_dev_emb.hdf]", "dm.val_hdfs=[clotho_val_emb.hdf]",
+                "dm.test_hdfs=[]", "dm.fixed_shapes=true"]
+        env = dict(os.environ, HF_HUB_OFFLINE="1",
+                   PYTHONPATH=os.pathsep.join(filter(None, [REPO, os.environ.get("PYTHONPATH")])))
+        runs = {}
+        for name, launch, extra, visible in (
+                ("one_card", [], [f"dm.bsize={BSIZE}"], "0"),
+                (f"torchrun_{cards}", ["-m", "torch.distributed.run", "--nproc-per-node", str(cards),
+                                       "--master-port", str(free_port())],
+                 [f"dm.bsize={BSIZE // cards}"], ",".join(map(str, range(cards))))):
+            log_root = os.path.join(work, f"logs_{name}")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, *launch, "-m", "conette_torch.train.main", *argv,
+                                   *extra, f"log_root={log_root}"], cwd=REPO, capture_output=True,
+                                  text=True, timeout=PARALLEL_TIMEOUT_S,
+                                  env=env | {"CUDA_VISIBLE_DEVICES": visible})
+            assert proc.returncode == 0, (name, proc.stderr[-4000:])
+            (run_dir,) = [os.path.join(log_root, d) for d in os.listdir(log_root)]
+            runs[name] = fit_record(run_dir) | {"wall_s": time.perf_counter() - t0}
+        a, b = runs["one_card"], runs[f"torchrun_{cards}"]
+        loss_rel = max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"]))
+        fit_cmp = same_fit(a, b, MAIN_TRAIN_LR)
+        out["main_train"] = {
+            name: {k: v for k, v in r.items() if k not in ("params", "moments")}
+            for name, r in runs.items()}
+        out["main_train"].update(loss_rel=loss_rel, **fit_cmp)
+        print(f"  torchrun of conette_torch.train.main over {cards} cards (dm.bsize "
+              f"{BSIZE // cards} a rank) against one card (dm.bsize {BSIZE}), {a['steps']} steps: "
+              f"losses rel {loss_rel:.2e} (tol {STEP_TOL['loss']}), best parameters "
+              f"{fit_cmp['param_max_abs']:.2e} apart at most (tol {FIT_PARAM_TOL}) but "
+              f"{sum(fit_cmp['rounding_elements'].values())} elements whose first moment is "
+              f"rounding, {fit_cmp['rounding_max_abs']:.2e} apart at most (Adam's reach "
+              f"{fit_cmp['reach']:.1e}); fit {b['fit_s']:.2f} s against {a['fit_s']:.2f} s "
+              f"(waiting on the host's batch {b['wait_s']:.2f} s against {a['wait_s']:.2f} s), wall "
+              f"{b['wall_s']:.1f} s against {a['wall_s']:.1f} s", flush=True)
+        for r in fit_cmp["largest"]:
+            print(f"    {r['leaf']}[{r['index']}]: {r['diff']:.3e} apart (value {r['param']:.4e}; "
+                  f"exp_avg {r['exp_avg'][0]:.3e} / {r['exp_avg'][1]:.3e}, exp_avg_sq "
+                  f"{r['exp_avg_sq'][0]:.3e} / {r['exp_avg_sq'][1]:.3e}; rounding {r['rounding']})",
+                  flush=True)
+    print(json.dumps(out, default=float), flush=True)
+    assert len(a["losses"]) == len(b["losses"]) == a["steps"] == b["steps"], (a["steps"], b["steps"])
+    assert loss_rel <= STEP_TOL["loss"], loss_rel
+    assert fit_cmp["param_max_abs"] <= FIT_PARAM_TOL, fit_cmp
+    assert fit_cmp["rounding_max_abs"] <= fit_cmp["reach"], fit_cmp
+    return out
+
+
 def kernel_line(records: list[dict], launches: dict) -> dict:
     meta = {
         "logmel": ("conette_torch/csrc/logmel.cu", "conette_tpu/ops/pallas/logmel.py:81"),
@@ -1973,6 +2592,9 @@ def main() -> int:
         print(f"  clips/s over the 3 requests: {summary['clips_per_s']:.2f}", flush=True)
         print(f"phase 4: corpus serving, {CORPUS_FILES} WAV and FLAC files, batch 8", flush=True)
         served = serve_corpus(model, work)
+        print("phase 8 (run here, while phase 4's corpus is on disk): the parallel layer", flush=True)
+        parallel = parallel_phase(os.path.join(work, "ckpt"), served, work, smi)
+        print(f"  phase 8 took {parallel['phase_s']:.1f} s", flush=True)
         print("phase 5: export at batch 8 x 10 s, save, load, replay", flush=True)
         exported = export_phase(model, work)
         del model
@@ -2001,13 +2623,18 @@ def main() -> int:
         k["training_replay_calls"] = trained["replay_calls"][k["name"]]
         # phase 7: prepare's f32 encoder takes the plain route (asserted 0)
         k["prepare_launches"] = prepared["prepare_launches"][k["name"]]
+        # phase 8: the 1 x 1 mesh's make_sharded_caption_fn as it captures,
+        # and its kernel calls in a profiled call
+        k["parallel_launches"] = parallel["launches"][k["name"]]
+        k["parallel_replay_calls"] = parallel["sharded_caption"]["calls"][k["name"]]
         if min(k["launches"], k["replay_calls_per_request"], k["serving_launches"],
                k["serving_replay_calls"], k["export_launches"], k["training_launches"],
-               k["training_eager_launches"]) <= 0:
+               k["training_eager_launches"], k["parallel_launches"],
+               k["parallel_replay_calls"]) <= 0:
             raise AssertionError(f"{k['name']} never launched on a path")
     details = json.dumps({"card": smi, "records": records, "main_path": summary,
                           "serving": served, "export": exported, "training": trained,
-                          "prepare": prepared}, default=float)
+                          "prepare": prepared, "parallel": parallel}, default=float)
     # the whole line, which is longer than the end of the output that a
     # caller may keep
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

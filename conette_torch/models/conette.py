@@ -18,8 +18,14 @@ import torch
 
 from conette_torch.decoding.beam import BeamResult, beam_search
 from conette_torch.decoding.greedy import GreedyResult, greedy_search
-from conette_torch.models.decoder import DecoderConfig, Params, decoder_forward, decoder_init
-from conette_torch.models.layers import cast, dropout, linear, linear_init
+from conette_torch.models.decoder import (
+    DecoderConfig,
+    FeedForwardSplit,
+    Params,
+    decoder_forward,
+    decoder_init,
+)
+from conette_torch.models.layers import RowDraws, cast, dropout, linear, linear_init
 from conette_torch.tokenization import AACTokenizer
 from conette_torch.utils.stopwords import ENGLISH_STOPWORDS
 
@@ -124,7 +130,7 @@ def encode_audio(
     audio_lens: torch.Tensor,
     *,
     deterministic: bool = True,
-    gen: torch.Generator | None = None,
+    gen: torch.Generator | RowDraws | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Project (B, T, 768) frame embeddings → (B, T, d_model) memory and a
     (B, T) pad mask (True = PAD). In training (``deterministic=False``)
@@ -171,10 +177,12 @@ def forward_forcing(
     *,
     caps_in_pad_mask: torch.Tensor | None = None,
     deterministic: bool = True,
-    gen: torch.Generator | None = None,
+    gen: torch.Generator | RowDraws | None = None,
     caps_in_embedded: bool = False,
+    ff_split: FeedForwardSplit | None = None,
 ) -> torch.Tensor:
-    """Teacher forcing → (B, vocab, L) logits (the reference's layout)."""
+    """Teacher forcing → (B, vocab, L) logits (the reference's layout).
+    ``ff_split``: the decoder's feed-forward split (``decoder.feed_forward``)."""
     if caps_in_pad_mask is None and not caps_in_embedded:
         caps_in_pad_mask = caps_in == cfg.pad_id
     logits = decoder_forward(
@@ -187,6 +195,7 @@ def forward_forcing(
         deterministic=deterministic,
         gen=gen,
         caps_in_embedded=caps_in_embedded,
+        ff_split=ff_split,
     )
     return logits.transpose(1, 2)
 

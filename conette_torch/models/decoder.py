@@ -23,13 +23,14 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from conette_torch.models.layers import (
     Params,
+    RowDraws,
     cast,
     dropout,
     embedding,
@@ -140,7 +141,7 @@ def attention(
     key_padding_mask: torch.Tensor | None = None,
     dropout_p: float = 0.0,
     deterministic: bool = True,
-    gen: torch.Generator | None = None,
+    gen: torch.Generator | RowDraws | None = None,
 ) -> torch.Tensor:
     """Multi-head attention. ``mask`` (Lq, Lk) bool, True = blocked;
     ``key_padding_mask`` (B, Lk) bool, True = PAD. In training
@@ -162,6 +163,47 @@ def attention(
 
 
 # ------------------------------------------------------------- full forward
+class FeedForwardSplit(NamedTuple):
+    """A feed-forward block split over ``size`` processes (Megatron's column
+    → row pair), as this process sees it: ``copy`` is the identity whose
+    gradient is summed over the processes, ``sum`` the processes' sum
+    whose gradient passes through (``parallel/mesh.py::feed_forward_split``
+    builds them over a mesh's ``model`` dim)."""
+
+    rank: int
+    size: int
+    copy: Callable[[torch.Tensor], torch.Tensor]
+    sum: Callable[[torch.Tensor], torch.Tensor]
+
+
+def feed_forward(
+    layer: Params,
+    x: torch.Tensor,
+    p: float,
+    deterministic: bool,
+    gen: torch.Generator | RowDraws | None,
+    split: FeedForwardSplit | None = None,
+) -> torch.Tensor:
+    """``linear2(dropout(gelu(linear1(x))))``.
+
+    :param split: where the block is split over processes: ``layer`` then
+        holds this process's columns of ``linear1/weight`` and rows of
+        ``linear2/weight`` and both biases whole. Each process computes its
+        block of the hidden layer, takes that block of the whole layer's
+        dropout draw, and the partial outputs are summed (``split.sum``);
+        ``x`` and ``linear1``'s bias enter through ``split.copy``, so the
+        replicated leaves get the whole gradient on every process."""
+    if split is None or split.size == 1:
+        hidden = dropout(gen, gelu(linear(layer["linear1"], x)), p, deterministic)
+        return linear(layer["linear2"], hidden)
+    width = layer["linear1"]["weight"].shape[1]
+    bias1 = split.copy(layer["linear1"]["bias"])[split.rank * width:(split.rank + 1) * width]
+    hidden = gelu(linear({"weight": layer["linear1"]["weight"], "bias": bias1}, split.copy(x)))
+    hidden = dropout(gen, hidden, p, deterministic, cols=(split.rank, split.size))
+    partial = torch.matmul(f32(hidden), f32(cast(layer["linear2"]["weight"], hidden.dtype)))
+    return cast(split.sum(partial) + f32(layer["linear2"]["bias"]), x.dtype)
+
+
 def decoder_forward(
     params: Params,
     cfg: DecoderConfig,
@@ -172,8 +214,9 @@ def decoder_forward(
     caps_in_pad_mask: torch.Tensor | None = None,
     causal: bool = True,
     deterministic: bool = True,
-    gen: torch.Generator | None = None,
+    gen: torch.Generator | RowDraws | None = None,
     caps_in_embedded: bool = False,
+    ff_split: FeedForwardSplit | None = None,
 ) -> torch.Tensor:
     """Teacher-forcing forward over a whole caption (the training pass).
 
@@ -184,6 +227,8 @@ def decoder_forward(
         on the scaled embeddings and, in each layer, on the self- and
         cross-attention probabilities and outputs, the hidden layer of the
         feed-forward block and its output, each draw from ``gen``.
+    :param ff_split: the split of the feed-forward blocks over processes
+        (:func:`feed_forward`), or None for whole layers.
     :returns: (B, L, vocab) f32 logits.
     """
     x = caps_in if caps_in_embedded else embedding(params["emb"], caps_in, dtype=memory.dtype)
@@ -205,8 +250,7 @@ def decoder_forward(
                        key_padding_mask=memory_key_padding_mask, dropout_p=p,
                        deterministic=deterministic, gen=gen)
         x = layer_norm(layer["norm2"], x + dropout(gen, ca, p, deterministic), LN_EPS)
-        hidden = dropout(gen, gelu(linear(layer["linear1"], x)), p, deterministic)
-        ff = linear(layer["linear2"], hidden)
+        ff = feed_forward(layer, x, p, deterministic, gen, ff_split)
         x = layer_norm(layer["norm3"], x + dropout(gen, ff, p, deterministic), LN_EPS)
     return f32(linear(params["classifier"], x))
 

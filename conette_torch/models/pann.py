@@ -265,14 +265,22 @@ def apply_pann_model(
     waveform: torch.Tensor,
     waveform_lens: torch.Tensor | None = None,
     *,
+    deterministic: bool = True,
     compute_dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """The forward of a ``build_pann_model`` name, with its frontend
     configuration (reference ``classtype(**kwargs)`` + ``model(input)``,
     ``pann_utils/hub.py:14-56``). LeeNet, DaiNet, Res1dNet and
     Wavegram_Cnn14 take no ``waveform_lens``, as in the JAX package: their
-    ``frame_embs_lens`` are the full frame count."""
+    ``frame_embs_lens`` are the full frame count. The port runs the
+    encoders for inference only: ``deterministic=False`` (batch statistics
+    and dropout) raises (ROADMAP Queue 1 item 6)."""
     from conette_torch.models import pann_zoo as zoo
+
+    if not deterministic:
+        raise NotImplementedError(
+            "the PANN encoders' training mode (deterministic=False) is not ported "
+            "(ROADMAP Queue 1 item 6)")
 
     name_l = name.lower()
     kw: dict[str, Any] = dict(compute_dtype=compute_dtype)
@@ -289,11 +297,9 @@ def apply_pann_model(
     if name_l in ("resnet22", "resnet38", "mobilenetv1"):
         arch = "mobilenetv1" if name_l == "mobilenetv1" else "resnet22"
         return zoo.pann_zoo_apply(params, waveform, waveform_lens, arch=arch, **kw)
-    if name_l == "wavegram_logmel128_cnn14":
-        return zoo.wavegram_logmel_cnn14_apply(params, waveform, waveform_lens,
-                                               logmel_cfg=zoo.PANN_LOGMEL128, **kw)
     with_lens = {"resnet54": zoo.resnet54_apply, "mobilenetv2": zoo.mobilenetv2_apply,
-                 "cnn6": zoo.cnn6_apply, "wavegram_logmel_cnn14": zoo.wavegram_logmel_cnn14_apply}
+                 "cnn6": zoo.cnn6_apply, "wavegram_logmel_cnn14": zoo.wavegram_logmel_cnn14_apply,
+                 "wavegram_logmel128_cnn14": zoo.wavegram_logmel128_cnn14_apply}
     if name_l in with_lens:
         return with_lens[name_l](params, waveform, waveform_lens, **kw)
     raw = {"leenet11": zoo.leenet_apply, "leenet24": zoo.leenet_apply,

@@ -407,6 +407,20 @@ def wavegram_logmel_cnn14_apply(
     return _outputs(params, x, waveform.shape[-1], waveform_lens)
 
 
+def wavegram_logmel128_cnn14_apply(
+    params: Params,
+    waveform: torch.Tensor,
+    waveform_lens: torch.Tensor | None = None,
+    *,
+    logmel_cfg: LogMelConfig = PANN_LOGMEL128,
+    compute_dtype: torch.dtype = torch.float32,
+) -> dict[str, torch.Tensor]:
+    """Wavegram_Logmel128_Cnn14: :func:`wavegram_logmel_cnn14_apply` with the
+    128-mel frontend by default."""
+    return wavegram_logmel_cnn14_apply(params, waveform, waveform_lens, logmel_cfg=logmel_cfg,
+                                       compute_dtype=compute_dtype)
+
+
 # ------------------------------------------------------------ Wavegram_Cnn14
 def wavegram_cnn14_init(gen: torch.Generator, num_classes: int = NUM_CLASSES) -> Params:
     """Wavegram-only Cnn14 (models.py:2743-2860): the log-mel branch's

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import math
 import os
 import subprocess
@@ -38,15 +39,20 @@ SOURCE = Path(__file__).resolve().with_name("audio_loader.cpp")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-ffast-math", "-fPIC", "-shared", "-std=c++17")
 
+pylog = logging.getLogger(__name__)
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+class CompilerNotFound(RuntimeError):
+    """``g++`` is not on PATH, so the library cannot be built here."""
 
 
 def _run_cxx(args: list[str], what: str) -> subprocess.CompletedProcess:
     try:
         proc = subprocess.run([CXX, *args], capture_output=True, text=True)
     except FileNotFoundError as err:
-        raise RuntimeError(f"the native audio loader needs {CXX} on PATH to {what}") from err
+        raise CompilerNotFound(f"the native audio loader needs {CXX} on PATH to {what}") from err
     if proc.returncode:
         raise RuntimeError(f"{CXX} failed to {what}:\n{proc.stderr}")
     return proc
@@ -88,6 +94,19 @@ def library() -> ctypes.CDLL:
             lib.conette_resample.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def is_available() -> bool:
+    """True once the library is loaded (built first where needed); False,
+    with the reason logged, where ``g++`` is missing. A build that fails
+    raises, as :func:`library` does: a broken source is never reported as
+    an absent compiler."""
+    try:
+        library()
+    except CompilerNotFound as err:
+        pylog.warning(f"native audio loader unavailable: {err}")
+        return False
+    return True
 
 
 _ERROR_MESSAGES = {

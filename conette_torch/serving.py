@@ -21,8 +21,14 @@ tokens of a batch are copied to pinned host memory behind its replay, and
 detokenized while the next batch's replay runs, as the JAX package
 drains the previous batch while the next one is dispatched.
 
-Sharding batches over a device mesh (the JAX ``mesh`` argument and
-``make_sharded_caption_fn``) comes with the port's parallelism slice.
+Over a device mesh (``parallel/mesh.py``, one process a card) the rows of
+each batch are split over its ``data`` dim, with the parameters whole on
+every process: each process runs its rows through the same captured
+program as ``caption_batch``, and the tokens and lprobs are gathered after
+its replay, outside the graph (``make_sharded_caption_fn``).
+``caption_corpus(mesh=)`` is called with the same paths on every process;
+each reads the headers of its share of the files and decodes only the
+files of its rows, and every process returns the whole result list.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from conette_torch.models.conette import encode_audio, forward_generate, tasks_t
 from conette_torch.models.convnext import convnext_apply
 from conette_torch.native import loader as native_loader
 from conette_torch.ops.resample import resampled_length
+from conette_torch.parallel.distributed import all_gather_rows
+from conette_torch.parallel.mesh import Axis, axis
 
 pylog = logging.getLogger(__name__)
 
@@ -66,13 +74,12 @@ def caption_corpus(
     buckets of fixed-size batches.
 
     :param task: one task for every clip, or one a clip.
+    :param mesh: a ``("data", "model")`` device mesh: every process of it
+        calls with the same arguments, and ``batch_size`` rows are split
+        over ``data``.
     :returns: results in the input order.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "Sharding caption_corpus over a mesh comes with the parallelism "
-            "slice of conette_torch; call it without mesh."
-        )
+    data = _data_axis(mesh, batch_size)
     n = len(paths)
     tasks = [task] * n if isinstance(task, str) else list(task)
     if len(tasks) != n:
@@ -90,9 +97,13 @@ def caption_corpus(
         sr, _, frames = native_loader.wav_info(path)
         return frames if sr == pre.target_sr else resampled_length(frames, sr, pre.target_sr)
 
+    # each process of ``data`` reads its share of the headers
+    lengths = [resampled_len(p) if i % data.size == data.rank else 0 for i, p in enumerate(paths)]
+    if data.size > 1:
+        lengths = all_gather_rows(torch.tensor(lengths), data.group).reshape(data.size, n).sum(0).tolist()
     buckets: dict[int, list[int]] = {}
-    for i, p in enumerate(paths):
-        buckets.setdefault(bucket_length(resampled_len(p)), []).append(i)
+    for i, length in enumerate(lengths):
+        buckets.setdefault(bucket_length(length), []).append(i)
     pylog.info(f"{n} clips → {len(buckets)} length buckets "
                f"({sorted(b // pre.target_sr for b in buckets)} s)")
 
@@ -116,33 +127,82 @@ def caption_corpus(
     pending: list[tuple[list[int], Any]] = []
 
     def drain(item: tuple[list[int], Any]) -> None:
-        chunk, (done, preds_h, lprobs_h) = item
-        if done is not None:
-            done.synchronize()
-        preds, lprobs = preds_h.numpy(), lprobs_h.numpy()
+        chunk, queued = item
+        preds, lprobs = (t.numpy() for t in _gathered(queued, data))
         for row, i in enumerate(chunk):
             results[i] = CaptionResult(
                 fname=paths[i], caption=model._decode_pred(preds[row]),
                 lprob=float(lprobs[row]), task=tasks[i],
             )
 
+    rows = slice(data.rank * (batch_size // data.size), (data.rank + 1) * (batch_size // data.size))
     for blen, idxs in sorted(buckets.items()):
         for start in range(0, len(idxs), batch_size):
             chunk = idxs[start : start + batch_size]
-            wav = np.zeros((batch_size, blen), np.float32)
-            lens = np.full((batch_size,), blen, np.int64)
-            for row, i in enumerate(chunk):
-                w, wl = pre.load_resample(paths[i])
-                m = min(int(wl[0]), blen)
-                wav[row, :m] = w[0, :m]
-                lens[row] = m
-            pending.append((chunk, caption_batch(model, wav, lens, bos_for(chunk), beam)))
+            mine = range(batch_size)[rows]
+            wav = np.zeros((len(mine), blen), np.float32)
+            lens = np.full((len(mine),), blen, np.int64)
+            for row, j in enumerate(mine):
+                if j < len(chunk):
+                    w, wl = pre.load_resample(paths[chunk[j]])
+                    m = min(int(wl[0]), blen)
+                    wav[row, :m] = w[0, :m]
+                    lens[row] = m
+            bos = bos_for(chunk)[rows]
+            pending.append((chunk, caption_batch(model, wav, lens, bos, beam)))
             # detokenize the previous batch while this one runs on the card
             if len(pending) > 1:
                 drain(pending.pop(0))
     for item in pending:
         drain(item)
     return [results[i] for i in range(n)]
+
+
+def _data_axis(mesh: Any, batch_size: int) -> Any:
+    """The mesh's ``data`` dim as this process sees it (one process, rank 0,
+    without a mesh); ``batch_size`` must split evenly over it."""
+    if mesh is None:
+        return Axis(None, 0, 1)
+    data = axis(mesh, "data")
+    if batch_size % data.size != 0:
+        raise ValueError(f"{batch_size=} not divisible by mesh data={data.size}")
+    return data
+
+
+def _gathered(queued: tuple, data: Any) -> tuple[torch.Tensor, torch.Tensor]:
+    """A queued ``caption_batch``'s tokens and lprobs on the host, once its
+    copy is done, gathered over ``data`` in row order."""
+    done, preds, lprobs = queued
+    if done is not None:
+        done.synchronize()
+    if data.size > 1:
+        preds, lprobs = all_gather_rows(preds, data.group), all_gather_rows(lprobs, data.group)
+    return preds, lprobs
+
+
+def make_sharded_caption_fn(model: CoNeTTEModel, mesh: Any, beam_size: int | None = None):
+    """The waveform → tokens pipeline of ``caption_corpus`` with the rows of
+    a batch split over the mesh's ``data`` dim. Every process of the mesh
+    calls the returned ``fn(waveform (B, S), lens (B,), bos_ids (B,)) →
+    (preds (B, max_pred_size) int32, lprobs (B,) f32)`` with the whole
+    batch; it captions its rows through ``caption_batch``'s captured
+    program and returns the whole batch's results (host tensors) on every
+    process. Unlike the JAX function, whose program leaves the memory in
+    f32 and the log-mel on its plain ops, this runs what ``caption_batch``
+    runs (the encoder's kernels, beam search over bf16 memory), so its
+    tokens are ``caption_batch``'s on the same rows."""
+    cfg = model.model_cfg
+    beam = beam_size if beam_size is not None else cfg.beam_size
+
+    def fn(waveform: np.ndarray, lens: np.ndarray, bos_ids: np.ndarray):
+        data = _data_axis(mesh, len(waveform))
+        b = len(waveform) // data.size
+        rows = slice(data.rank * b, (data.rank + 1) * b)
+        queued = caption_batch(model, np.asarray(waveform, np.float32)[rows],
+                               np.asarray(lens)[rows], np.asarray(bos_ids)[rows], beam)
+        return _gathered(queued, data)
+
+    return fn
 
 
 def caption_batch(model: CoNeTTEModel, wav: np.ndarray, lens: np.ndarray, bos_ids: np.ndarray,

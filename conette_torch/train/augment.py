@@ -18,8 +18,12 @@ there, and every shape is static, so a transform never reads back to the
 host. Stripes and cutouts are drawn per row, all rows at once; with
 ``time_valid`` the time stripes are sized and placed within each row's real
 length, so the augmentation does not depend on how far a batch is padded.
-The JAX package's ``row_ids`` (per-row keys, so that several processes draw
-the stripes of one global batch) waits for multi-process training.
+The stripe and cutout draws take a ``torch.Generator`` or a
+``layers.RowDraws``: the latter draws at the whole global batch's shape and
+keeps a process's rows, so that a row's stripes and cutout are those one
+process holding the whole batch would draw (the JAX package keys them by
+``row_ids`` instead, folding each row's id into its key; ``RowDraws`` says
+why the port draws whole batches).
 ``speed_perturb`` applies with probability ``p`` (the reference inverts
 that test for fractional ``p``), and ``spec_augment_ratio`` guards the
 full-width stripe at which the reference's ``randint(0, 0)`` raises.
@@ -31,6 +35,7 @@ import math
 
 import torch
 
+from conette_torch.models.layers import RowDraws, rand
 from conette_torch.train.objective import randperm_diff, sample_lambda
 
 
@@ -90,12 +95,16 @@ def resample_nearest(x: torch.Tensor, rate: float, time_axis: int = -1) -> torch
 # ---------------------------------------------------------------------------
 
 
-def _randint(gen: torch.Generator, low: torch.Tensor, high: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, n) integers, uniform in ``[low, high)`` of each row (``high >
-    low``): ``low + floor(u * (high - low))`` with u uniform in [0, 1)."""
-    u = torch.rand((low.shape[0], n), generator=gen, device=low.device, dtype=torch.float64)
-    span = (high - low)[:, None]
-    return low[:, None] + torch.minimum((u * span).floor().long(), span - 1)
+def _randint(gen: torch.Generator | RowDraws, low: torch.Tensor, high: torch.Tensor,
+             n: int) -> torch.Tensor:
+    """(B, n) integers, uniform in ``[low, high)`` (``high > low``), where
+    ``low``/``high`` are (B,), one range a row, or (B, n): ``low + floor(u *
+    (high - low))`` with u uniform in [0, 1)."""
+    u = rand(gen, (low.shape[0], n), low.device, torch.float64)
+    if low.ndim == 1:
+        low, high = low[:, None], high[:, None]
+    span = high - low
+    return low + torch.minimum((u * span).floor().long(), span - 1)
 
 
 def _draw_stripes(gen, max_width, n_stripes: int, valid: torch.Tensor):
@@ -106,9 +115,9 @@ def _draw_stripes(gen, max_width, n_stripes: int, valid: torch.Tensor):
     mw = torch.clamp(torch.minimum(torch.as_tensor(max_width, device=v.device).long().expand_as(v), v),
                      min=1)
     widths = _randint(gen, torch.zeros_like(v), mw, n_stripes)
-    starts = _randint(gen, torch.zeros_like(widths).reshape(-1),
-                      torch.clamp((v[:, None] - widths).reshape(-1), min=1), 1)
-    return starts.reshape(widths.shape), widths
+    starts = _randint(gen, torch.zeros_like(widths), torch.clamp(v[:, None] - widths, min=1),
+                      n_stripes)
+    return starts, widths
 
 
 def _draw_stripes_ratio(gen, ratios: tuple[float, float], n_stripes: int, valid: torch.Tensor):
@@ -121,9 +130,8 @@ def _draw_stripes_ratio(gen, ratios: tuple[float, float], n_stripes: int, valid:
     w = torch.where((imin >= imax)[:, None], imin[:, None], drawn)
     w = torch.where((imin > imax)[:, None], 0, w)
     w = torch.minimum(w, v[:, None])
-    starts = _randint(gen, torch.zeros_like(w).reshape(-1),
-                      torch.clamp((v[:, None] - w).reshape(-1), min=1), 1)
-    return starts.reshape(w.shape), w
+    starts = _randint(gen, torch.zeros_like(w), torch.clamp(v[:, None] - w, min=1), n_stripes)
+    return starts, w
 
 
 def _valid(x: torch.Tensor, time_valid: torch.Tensor | None) -> torch.Tensor:
@@ -145,7 +153,7 @@ def _drop(x, t_starts, t_widths, f_starts, f_widths, fill_value):
 
 
 def spec_augment(
-    gen: torch.Generator,
+    gen: torch.Generator | RowDraws,
     x: torch.Tensor,
     time_drop_width: torch.Tensor | int = 64,
     time_stripes_num: int = 2,
@@ -155,7 +163,8 @@ def spec_augment(
     fill_value: float = 0.0,
 ) -> torch.Tensor:
     """(B, T, F) SpecAugment with fixed maximum widths (the reference
-    ConvNeXt defaults). ``time_valid`` (B,): each row's real time length."""
+    ConvNeXt defaults). ``time_valid`` (B,): each row's real time length;
+    ``gen`` a ``RowDraws`` where ``x`` holds some rows of a global batch."""
     b, t, f = x.shape
     tv = _valid(x, time_valid)
     ts, tw = _draw_stripes(gen, time_drop_width, time_stripes_num, tv)
@@ -164,7 +173,7 @@ def spec_augment(
 
 
 def spec_augment_ratio(
-    gen: torch.Generator,
+    gen: torch.Generator | RowDraws,
     x: torch.Tensor,
     time_ratios: tuple[float, float] = (0.0, 0.1),
     time_stripes_num: int = 2,
@@ -176,7 +185,8 @@ def spec_augment_ratio(
     """SpecAugment with stripe widths drawn from ratio bounds of the extent
     (the production train transform on frame embeddings): width ~
     ``randint(round(dim*r0), round(dim*r1))``. With ``time_valid`` the time
-    bounds apply to each row's real length."""
+    bounds apply to each row's real length; ``gen`` as in
+    :func:`spec_augment`."""
     b, t, f = x.shape
     tv = _valid(x, time_valid)
     ts, tw = _draw_stripes_ratio(gen, time_ratios, time_stripes_num, tv)
@@ -231,7 +241,7 @@ def speed_perturb(
 
 
 def cutout_spec(
-    gen: torch.Generator,
+    gen: torch.Generator | RowDraws,
     x: torch.Tensor,
     time_size_range: tuple[float, float] = (0.1, 0.5),
     freq_size_range: tuple[float, float] = (0.1, 0.5),
@@ -239,7 +249,8 @@ def cutout_spec(
 ) -> torch.Tensor:
     """One rectangle a row of (B, T, F) filled with ``fill_value``
     (``CutOutSpec``): each side ``size ~ randint(ceil(dim*s0),
-    max(ceil(dim*s1), min+1))``, ``start ~ randint(0, max(dim - size + 1, 1))``."""
+    max(ceil(dim*s1), min+1))``, ``start ~ randint(0, max(dim - size + 1, 1))``;
+    ``gen`` as in :func:`spec_augment`."""
     b, t, f = x.shape
     dev = x.device
 

@@ -19,7 +19,7 @@ import logging
 import os
 import re
 import shutil
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -39,13 +39,14 @@ def save_checkpoint(
     ckpt_dir: str,
     params: Any,
     *,
-    opt_state: torch.optim.Optimizer | None = None,
+    opt_state: torch.optim.Optimizer | Mapping[str, np.ndarray] | None = None,
     step: int = 0,
     meta: dict | None = None,
     tokenizer: AACTokenizer | None = None,
     backend: str = "npz",
 ) -> str:
-    """Write ``params`` (a tree of tensors or arrays), the optimizer's state,
+    """Write ``params`` (a tree of tensors or arrays), the optimizer's state
+    (an optimizer, or its state as :func:`flatten_opt_state` lays it out),
     ``meta.json`` (``{"step": step} | meta``) and the tokenizer into
     ``ckpt_dir``."""
     if backend != "npz":
@@ -55,7 +56,9 @@ def save_checkpoint(
     os.makedirs(ckpt_dir, exist_ok=True)
     save_tree(os.path.join(ckpt_dir, "params.npz"), params)
     if opt_state is not None:
-        np.savez(os.path.join(ckpt_dir, "opt_state.npz"), **_opt_state_flat(opt_state))
+        if isinstance(opt_state, torch.optim.Optimizer):
+            opt_state = flatten_opt_state(opt_state)
+        np.savez(os.path.join(ckpt_dir, "opt_state.npz"), **opt_state)
     with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
         json.dump({"step": step} | (meta or {}), f, indent=2)
     if tokenizer is not None:
@@ -192,7 +195,7 @@ class CheckpointManager:
             shutil.copytree(best, link, dirs_exist_ok=True)
 
 
-def _opt_state_flat(optimizer: torch.optim.Optimizer) -> dict[str, np.ndarray]:
+def flatten_opt_state(optimizer: torch.optim.Optimizer) -> dict[str, np.ndarray]:
     """The optimizer's per-parameter state keyed ``state/<param name>/<key>``
     (its groups' ``param_names``, as ``train/optim.py`` builds them) and each
     group's numeric hyperparameters keyed ``group/<i>/<key>``."""
@@ -215,7 +218,7 @@ def restore_opt_state(
     with the same configuration over the same parameter names: resume with
     momentum. A payload of another configuration raises ``ValueError``."""
     names = [n for g in optimizer.param_groups for n in g["param_names"]]
-    want = {k for k in _opt_state_flat(optimizer) if k.startswith("group/")}
+    want = {k for k in flatten_opt_state(optimizer) if k.startswith("group/")}
     missing = sorted(want - set(opt_state_flat))
     extra = sorted(k for k in opt_state_flat if k not in want
                    and not (k.startswith("state/") and k.split("/", 1)[1].rsplit("/", 1)[0] in names))

@@ -76,9 +76,19 @@ def fit(
     swa_start: Optional[int] = None,
     pin_memory: bool = False,
     debug: bool = False,
+    mesh: Any = None,
 ) -> FitResult:
+    """Train for ``max_epochs`` (or ``max_steps``), validating and
+    checkpointing each ``val_every_n_epochs``.
+
+    :param mesh: the mesh of ``make_sharded_train_step`` when it trains
+        ``state``: its parameters and moments are then this process's
+        blocks, and every process gathers them whole (``step.gather_params``,
+        ``step.gather_opt_state``) for validation and checkpoints, which run
+        on rank 0; rank 0 hands the validation metrics to every process."""
     from conette_torch.data.prefetch import prefetch_iterator
-    from conette_torch.parallel.distributed import is_main_process
+    from conette_torch.parallel.distributed import broadcast_from_main, is_main_process
+    from conette_torch.train.step import gather_opt_state, gather_params
 
     ema_params = snapshot(state.params) if ema_decay else None
     swa_params = None
@@ -139,20 +149,23 @@ def fit(
 
         # ---- validation
         if dm.num_eval_loaders("val") > 0 and epoch % int(val_every_n_epochs) == 0:
-            val_metrics = eval_runner.run_validation(state.params, epoch)
+            params = gather_params(state.params, mesh)
+            val_metrics = broadcast_from_main(
+                eval_runner.run_validation(params, epoch) if is_main_process() else None)
             logger.log_metrics(val_metrics | {"epoch": epoch}, step=global_step)
             if plateau is not None and ckpt.monitor in val_metrics:
                 plateau.step(float(val_metrics[ckpt.monitor]))
             # checkpoint the averaged weights when SWA or EMA is on (SWA wins)
             ckpt_params = (
-                swa_params if swa_params is not None
-                else (ema_params if ema_decay else state.params)
+                gather_params(swa_params, mesh) if swa_params is not None
+                else (gather_params(ema_params, mesh) if ema_decay else params)
             )
+            opt_state = gather_opt_state(state.opt_state, mesh)
             if is_main_process():
                 ckpt.step(
                     epoch, val_metrics,
                     ckpt_params,
-                    opt_state=state.opt_state,
+                    opt_state=opt_state,
                     tokenizer=tokenizer,
                     extra_meta={
                         "global_step": global_step,

@@ -1,4 +1,4 @@
-"""conette-train: the full training pipeline on one card.
+"""conette-train: the full training pipeline, on one card or several.
 
 Counterpart of ``conette_tpu/train/main.py`` (the reference's
 ``main_train``, ``src/conette/train.py:359-527``), in the same phases:
@@ -21,22 +21,31 @@ Run as ``python -m conette_torch.train.main <overrides>`` (the JAX
 package's overrides and ``conf/`` tree). It trains on ``cuda`` unless given
 ``device=cpu`` (or ``main_train(argv, device="cpu")``), and without a CUDA
 device it raises. TF32 is off on the card, so f32 steps compute in f32.
-Several cards (``trainer.data_parallel`` or ``trainer.model_parallel`` > 1)
-and several processes wait for ROADMAP Queue 1 item 9 and raise
-``NotImplementedError``. ``trainer.profiler.name=jax`` (the conf tree's
-name) traces the fit loop with ``torch.profiler`` into
-``{run_dir}/profile/trace.json``.
+``trainer.profiler.name=jax`` (the conf tree's name) traces the fit loop
+with ``torch.profiler`` into ``{run_dir}/profile/trace.json``.
+
+Several cards take one process each: ``torchrun --nproc-per-node N -m
+conette_torch.train.main ...`` (or an ``srun`` of N tasks). The processes
+form a ``(N / model_parallel, model_parallel)`` mesh (``parallel/mesh.py``)
+and train with ``make_sharded_train_step``: each reads its rows of every
+global batch of ``dm.bsize × N / model_parallel`` rows from the datamodule,
+with the pad shapes fixed so that every process collates alike, and
+``trainer.model_parallel`` splits the decoder's feed-forward blocks.
+Validation, test, checkpoints, the artifacts and the profiler run on
+rank 0, on the whole parameters gathered from the processes' blocks; rank
+0 hands the validation metrics to the others. A ``trainer.data_parallel``
+larger than the world raises and names the launch it needs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
 import sys
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
 from conette_torch.train.run_setup import run_tag, setup_run  # noqa: F401  (re-export)
@@ -72,6 +81,27 @@ def _spec_aug_fn(cfg) -> Any:
     return None
 
 
+def _train_mesh(tr_cfg, world: int) -> Any:
+    """The mesh of a launch of ``world`` processes, one a card (None: one
+    process trains alone). ``trainer.data_parallel`` (``auto`` or a count)
+    and ``trainer.model_parallel`` must fit the world: a count larger than
+    it raises and names the launch it needs."""
+    dp_cfg = tr_cfg.get("data_parallel", "auto")
+    mp_size = int(tr_cfg.get("model_parallel", 1) or 1)
+    wanted = max(dp_cfg if isinstance(dp_cfg, int) else 1, mp_size)
+    if wanted > world or world % mp_size:
+        n = wanted if world < wanted else mp_size * (world // mp_size + 1)
+        raise ValueError(
+            f"trainer.data_parallel={dp_cfg}, trainer.model_parallel={mp_size}: a launch of "
+            f"{world} process(es) cannot hold them; conette_torch trains one process a card, "
+            f"so launch {n}: torchrun --nproc-per-node {n} -m conette_torch.train.main ...")
+    if world == 1:
+        return None
+    from conette_torch.parallel.mesh import make_mesh
+
+    return make_mesh(world, mp_size)
+
+
 def main_train(
     argv: Optional[list[str]] = None, device: torch.device | str | None = None
 ) -> dict[str, Any]:
@@ -83,17 +113,23 @@ def main_train(
     cfg = load_config("train", argv)
     dev = resolve_device(device if device is not None else cfg.get("device") or "cuda")
     tr_cfg = cfg.get("trainer", {})
-    dp_cfg = tr_cfg.get("data_parallel", "auto")
-    if (isinstance(dp_cfg, int) and dp_cfg > 1) or int(tr_cfg.get("model_parallel", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"trainer.data_parallel={dp_cfg}, trainer.model_parallel="
-            f"{tr_cfg.get('model_parallel', 1)}: conette_torch trains on one card; "
-            "multi-GPU training (ROADMAP Queue 1 item 9) is not ported yet")
 
     # ------------------------------------------------------------ 1/6 setup
-    from conette_torch.parallel.distributed import is_main_process
+    from conette_torch.parallel.distributed import (
+        broadcast_from_main,
+        is_main_process,
+        world_size,
+    )
 
-    run_dir, logger, seed, t_start = setup_run(cfg, argv)
+    run_dir, logger, seed, t_start = setup_run(cfg, argv, device=dev)
+    mesh = _train_mesh(tr_cfg, world_size())
+    data_rank, data_size = 0, 1
+    if mesh is not None:
+        from conette_torch.parallel.mesh import axis
+
+        data_rank, data_size = axis(mesh, "data").rank, axis(mesh, "data").size
+        pylog.info(f"Training over a mesh of {world_size()} processes "
+                   f"(data {data_size} × model {world_size() // data_size})")
     pylog.info(f"Training on {dev}")
 
     # ----------------------------------------------- 2/6 tokenizer + tfms
@@ -135,8 +171,8 @@ def main_train(
         caption_quantum=int(dm_cfg.get("caption_quantum", 4)),
         caption_max_len=int(dm_cfg.get("caption_max_len", 64)),
         seed=seed,
-        process_rank=0,
-        process_count=1,
+        process_rank=data_rank,
+        process_count=data_size,
         fixed_shapes=bool(dm_cfg.get("fixed_shapes", False)),
     )
     dm.setup_fit()
@@ -223,7 +259,12 @@ def main_train(
     params = map_tree(lambda t: t.to(dev), params)
 
     from conette_torch.train.optim import ReduceLROnPlateau, get_optimizer
-    from conette_torch.train.step import init_train_state, make_train_step
+    from conette_torch.train.step import (
+        gather_params,
+        init_train_state,
+        make_sharded_train_step,
+        make_train_step,
+    )
 
     max_epochs = int(tr_cfg.get("max_epochs", 400))
     base_lr = float(pl_cfg.get("lr", 5e-4))
@@ -253,12 +294,17 @@ def main_train(
             pylog.warning(f"Could not restore optimizer state: {err}")
 
     # ------------------------------------------------------------ 4/6 fit
-    train_step = make_train_step(
-        model_cfg,
+    step_kw = dict(
         use_mixup=model_cfg.mixup_alpha > 0,
         grad_clip_norm=tr_cfg.get("grad_clip_norm"),
         accumulate_grad_batches=int(tr_cfg.get("accumulate_grad_batches", 1) or 1),
     )
+    if mesh is None:
+        train_step = make_train_step(model_cfg, **step_kw)
+    else:
+        local_rows = {"audio_lens": torch.zeros(dm.bsize)}
+        state, train_step = make_sharded_train_step(model_cfg, optimizer, mesh, state, local_rows,
+                                                    **step_kw)
     ema_decay = tr_cfg.get("ema_decay")
     swa_start_cfg = tr_cfg.get("swa_start")
     swa_start = None
@@ -277,6 +323,7 @@ def main_train(
         )
 
     from conette_torch.metrics.functional import fense as fense_mod
+    from conette_torch.models.layers import RowDraws
     from conette_torch.train.checkpoint import CheckpointManager
     from conette_torch.train.eval_run import EvalRunner
 
@@ -322,12 +369,20 @@ def main_train(
         batch["audio_lens"] = batch["audio_lens"].long()
         batch["captions"] = batch["captions"].long()
         if spec_aug_fn is not None:
-            # stripes sized and placed within each row's real length
-            batch["audio"] = spec_aug_fn(aug_gen, batch["audio"], time_valid=batch["audio_lens"])
+            # stripes sized and placed within each row's real length, and
+            # drawn for the global batch, so that a row's stripes do not
+            # depend on the process that holds it
+            rows = len(batch["audio"])
+            draws = aug_gen if mesh is None else RowDraws(aug_gen, data_rank * rows, data_size * rows)
+            batch["audio"] = spec_aug_fn(draws, batch["audio"], time_valid=batch["audio_lens"])
         return batch
 
+    whole = functools.partial(gather_params, mesh=mesh)
+
     if cfg.get("val_on_start") and dm.num_eval_loaders("val") > 0:
-        start_metrics = eval_runner.run_validation(state.params, -1)
+        start_params = whole(state.params)
+        start_metrics = broadcast_from_main(
+            eval_runner.run_validation(start_params, -1) if is_main_process() else None)
         logger.log_metrics({f"start_{k}": v for k, v in start_metrics.items()})
         pylog.info(f"val_on_start: {start_metrics}")
 
@@ -335,52 +390,51 @@ def main_train(
         cfg.get("test_on_start")
         and cfg.get("resume")
         and dm.num_eval_loaders("test") > 0
-        and is_main_process()
     ):
-        eval_runner.run_test("start", state.params)
+        start_params = whole(state.params)
+        if is_main_process():
+            eval_runner.run_test("start", start_params)
 
     profiler_cfg = dict(tr_cfg.get("profiler") or {})
-    prof = None
+    tracing = contextlib.nullcontext()
     if profiler_cfg.get("name") == "jax" and is_main_process():
-        from torch.profiler import ProfilerActivity, profile
+        from conette_torch.utils.profiling import trace
 
-        trace_dir = profiler_cfg.get("trace_dir") or os.path.join(run_dir, "profile")
-        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        prof = profile(activities=activities)
-        prof.start()
-        pylog.info(f"torch.profiler trace → {trace_dir}")
+        tracing = trace(profiler_cfg.get("trace_dir") or os.path.join(run_dir, "profile"))
 
     from conette_torch.train.loop import fit
 
-    fit_res = fit(
-        state=state,
-        gen=gen,
-        dm=dm,
-        train_step=train_step,
-        to_train_batch=to_train_batch,
-        eval_runner=eval_runner,
-        ckpt=ckpt,
-        logger=logger,
-        tokenizer=tokenizer,
-        model_cfg=model_cfg,
-        lr_schedule=lr_schedule,
-        plateau=plateau,
-        base_lr=base_lr,
-        max_epochs=max_epochs,
-        max_steps=int(tr_cfg.get("max_steps", -1) or -1),
-        lim_train=lim_train,
-        val_every_n_epochs=int(tr_cfg.get("val_every_n_epochs", 1)),
-        log_every_n_steps=log_every_n_steps,
-        ema_decay=ema_decay,
-        swa_start=swa_start,
-        pin_memory=pinned,
-        debug=bool(cfg.get("debug")),
-    )
+    with tracing:
+        fit_res = fit(
+            state=state,
+            gen=gen,
+            dm=dm,
+            train_step=train_step,
+            to_train_batch=to_train_batch,
+            eval_runner=eval_runner,
+            ckpt=ckpt,
+            logger=logger,
+            tokenizer=tokenizer,
+            model_cfg=model_cfg,
+            lr_schedule=lr_schedule,
+            plateau=plateau,
+            base_lr=base_lr,
+            max_epochs=max_epochs,
+            max_steps=int(tr_cfg.get("max_steps", -1) or -1),
+            lim_train=lim_train,
+            val_every_n_epochs=int(tr_cfg.get("val_every_n_epochs", 1)),
+            log_every_n_steps=log_every_n_steps,
+            ema_decay=ema_decay,
+            swa_start=swa_start,
+            pin_memory=pinned,
+            debug=bool(cfg.get("debug")),
+            mesh=mesh,
+        )
     state, swa_params = fit_res.state, fit_res.swa_params
-    if prof is not None:
-        prof.stop()
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    # the test, the artifacts and the returned state hold whole parameters
+    state.params = whole(state.params)
+    if swa_params is not None:
+        swa_params = whole(swa_params)
     logger.log_metrics({
         "fit_duration_s": fit_res.fit_duration,
         "fit_batch_wait_s": fit_res.batch_wait_s,
@@ -444,6 +498,9 @@ def main_train(
         )
 
     # ------------------------------------------------------- 6/6 artifacts
+    if not is_main_process():
+        return {"run_dir": run_dir, "best": None, "test": {}, "test_by_model": {},
+                "out": float(cfg.get("out_default", -1.0)), "fit": fit_res}
     from conette_torch.train.artifacts import finalize_run
 
     out = finalize_run(

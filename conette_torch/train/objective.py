@@ -27,6 +27,7 @@ from conette_torch.models.conette import (
     encode_audio,
     forward_forcing,
 )
+from conette_torch.models.layers import RowDraws
 
 Params = dict[str, Any]
 
@@ -68,19 +69,24 @@ def label_smoothed_ce(
     targets: torch.Tensor,
     pad_id: int,
     label_smoothing: float = 0.0,
+    count: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """torch ``CrossEntropyLoss(ignore_index=pad, label_smoothing=ε)``:
     mean over non-pad positions of CE against the ε-smoothed target.
 
     :param logits: (B, vocab, L) (reference layout) or (B, L, vocab).
     :param targets: (B, L) token ids.
+    :param count: the divisor in place of these targets' non-pad count
+        (a sharded step divides its rows' sum by the global batch's count).
     """
     lp = _log_probs(logits, targets)
     nll = -lp.gather(-1, targets[..., None])[..., 0]
     smooth = -lp.mean(dim=-1)
     loss = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     mask = targets != pad_id
-    return torch.where(mask, loss, 0.0).sum() / mask.sum().clamp_min(1)
+    if count is None:
+        count = mask.sum()
+    return torch.where(mask, loss, 0.0).sum() / count.clamp_min(1)
 
 
 def per_caption_ce(
@@ -101,6 +107,7 @@ def training_loss(
     *,
     use_mixup: bool = True,
     mixup_override: tuple[Any, torch.Tensor] | None = None,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """One training-step loss on a batch with keys ``audio`` (B, T, 768),
     ``audio_lens`` (B,), ``captions`` (B, L) (first column already the task
@@ -109,11 +116,30 @@ def training_loss(
     :param gen: the step's generator (mixup pairing and λ, dropout).
     :param mixup_override: (λ, perm) in place of the drawn mixup
         randomness, so that two implementations can be driven with the same
-        mixing."""
+        mixing.
+    :param mesh: a ``("data", "model")`` device mesh (``parallel/mesh.py``)
+        whose ``data`` dim splits the global batch: ``batch`` holds this
+        process's block of rows, and the result is its share of the global
+        loss, the sum of its rows' token losses over the global batch's
+        token count, so that the shares sum over ``data`` to the
+        one-process loss and their gradients to its gradient. Every draw
+        (pairing, λ, dropout) is made at the global batch's shape and this
+        process's rows are kept (``RowDraws``), and mixup pairs rows over
+        the whole batch, whose rows are first gathered over ``data``: a
+        row's result does not depend on how the batch is split. The
+        ``model`` dim splits the decoder's feed-forward blocks."""
     audio = batch["audio"]
     audio_lens = batch["audio_lens"]
     captions = batch["captions"]
     b = captions.shape[0]
+    draws, ff_split = gen, None
+    if mesh is not None:
+        from conette_torch.parallel.mesh import axis, feed_forward_split
+
+        data, ff_split = axis(mesh, "data"), feed_forward_split(mesh)
+        rows = slice(data.rank * b, (data.rank + 1) * b)
+        b *= data.size
+        draws = RowDraws(gen, rows.start, b)
 
     caps_in = captions[:, :-1]
     caps_out = captions[:, 1:]
@@ -127,19 +153,34 @@ def training_loss(
         else:
             idx = randperm_diff(gen, b)
             lbd = sample_lambda(gen, cfg.mixup_alpha, asymmetric=True)
-        audio = audio * lbd + audio[idx] * (1.0 - lbd)
-        audio_lens = torch.maximum(audio_lens, audio_lens[idx])
-        caps_emb = caps_emb * lbd + caps_emb[idx] * (1.0 - lbd)
+        if mesh is None:
+            other_audio, other_lens, other_emb = audio[idx], audio_lens[idx], caps_emb[idx]
+        else:
+            from conette_torch.parallel.distributed import all_gather_rows
+
+            partner = idx[rows]
+            other_audio = all_gather_rows(audio, data.group)[partner]
+            other_lens = all_gather_rows(audio_lens, data.group)[partner]
+            other_emb = embed_tokens(params, all_gather_rows(caps_in, data.group)[partner],
+                                     dtype=audio.dtype, pad_id=cfg.pad_id)
+        audio = audio * lbd + other_audio * (1.0 - lbd)
+        audio_lens = torch.maximum(audio_lens, other_lens)
+        caps_emb = caps_emb * lbd + other_emb * (1.0 - lbd)
 
     memory, memory_pad = encode_audio(
-        params, cfg, audio, audio_lens, deterministic=False, gen=gen
+        params, cfg, audio, audio_lens, deterministic=False, gen=draws
     )
     logits = forward_forcing(
         params, cfg, memory, memory_pad, caps_emb,
-        caps_in_pad_mask=caps_in_pad_mask, deterministic=False, gen=gen,
-        caps_in_embedded=True,
+        caps_in_pad_mask=caps_in_pad_mask, deterministic=False, gen=draws,
+        caps_in_embedded=True, ff_split=ff_split,
     )
-    return label_smoothed_ce(logits, caps_out, cfg.pad_id, cfg.label_smoothing)
+    count = None
+    if mesh is not None:
+        from conette_torch.parallel.distributed import all_reduce
+
+        count = all_reduce((caps_out != cfg.pad_id).sum(), data.group)
+    return label_smoothed_ce(logits, caps_out, cfg.pad_id, cfg.label_smoothing, count)
 
 
 def per_ref_losses(

@@ -5,9 +5,11 @@ Counterpart of ``conette_tpu/train/run_setup.py`` (the reference's
 naming from the CLI overrides (the get_tag/get_subtag idiom), the
 ``RunLogger`` and the code snapshot. ``debug=true`` turns on
 ``torch.autograd.set_detect_anomaly``, the reference's own
-``detect_anomaly`` (the JAX package's ``jax_debug_nans``). One process
-only: a launch over several (``WORLD_SIZE`` or ``SLURM_NTASKS`` > 1) raises
-until multi-GPU training is ported (ROADMAP Queue 1 item 9).
+``detect_anomaly`` (the JAX package's ``jax_debug_nans``). A launch of
+several processes (torchrun's ``WORLD_SIZE`` or SLURM's ``SLURM_NTASKS`` > 1)
+joins its process group first; every process then names the same run
+directory from rank 0's clock, rank 0 writes it, and each other rank
+logs under its ``rank<r>/`` subdirectory.
 """
 
 from __future__ import annotations
@@ -68,34 +70,42 @@ class RunSetup(NamedTuple):
     t_start: float
 
 
-def setup_run(cfg: Any, argv: list[str]) -> RunSetup:
-    """Logging → seed → run dir → artifact logger, in the reference's
-    phase-1 order."""
+def setup_run(cfg: Any, argv: list[str], device: Any = None) -> RunSetup:
+    """Process group → logging → seed → run dir → artifact logger, in the
+    reference's phase-1 order. ``device`` picks the group's backend."""
     import torch
 
-    for var in ("WORLD_SIZE", "SLURM_NTASKS"):
-        if int(os.environ.get(var, "1") or 1) > 1:
-            raise NotImplementedError(
-                f"{var}={os.environ[var]}: conette_torch trains in one process on one "
-                "card; multi-process training waits for ROADMAP Queue 1 item 9")
-
+    from conette_torch.parallel.distributed import (
+        broadcast_from_main,
+        initialize,
+        is_main_process,
+        rank_tag,
+        world_size,
+    )
     from conette_torch.utils.log_utils import setup_job_logging
 
-    setup_job_logging(verbose=int(cfg.get("verbose", 1)))
+    # trainer/plugins: lightning = the local environment (SLURM_* ignored)
+    plugin = str(cfg.get_path("trainer.plugins.name", "none"))
+    initialize(use_scheduler_env=plugin != "lightning", device=device)
+    tag_rank = rank_tag() if world_size() > 1 else None
+    setup_job_logging(rank_tag=tag_rank, verbose=int(cfg.get("verbose", 1)))
 
     if cfg.get("debug"):
         torch.autograd.set_detect_anomaly(True)
 
     seed = int(cfg.get("seed", 1234))
     tag = run_tag(cfg, argv)
-    stamp = datetime.datetime.fromtimestamp(time.time()).strftime("%Y.%m.%d-%H.%M.%S")
+    # every process names the run directory from rank 0's clock
+    now = broadcast_from_main(time.time())
+    stamp = datetime.datetime.fromtimestamp(now).strftime("%Y.%m.%d-%H.%M.%S")
     run_name = cfg.get("run_name") or (
         f"{cfg.get('job', 'train')}-" + stamp + (f"-{tag}" if tag else "")
     )
     run_dir = os.path.join(cfg.get("log_root", "logs"), run_name)
-    os.makedirs(run_dir, exist_ok=True)
+    log_dir = run_dir if is_main_process() else os.path.join(run_dir, tag_rank.lower())
+    os.makedirs(log_dir, exist_ok=True)
     # re-attach with the run-dir file handler (logs/outputs.log twin)
-    setup_job_logging(run_dir=run_dir, verbose=int(cfg.get("verbose", 1)))
+    setup_job_logging(run_dir=log_dir, rank_tag=tag_rank, verbose=int(cfg.get("verbose", 1)))
 
     from conette_torch.utils.misc import (
         get_current_git_hash,
@@ -105,12 +115,13 @@ def setup_run(cfg: Any, argv: list[str]) -> RunSetup:
     from conette_torch.utils.run_logger import RunLogger
 
     reset_seed(seed)
-    logger = RunLogger(run_dir)
+    logger = RunLogger(log_dir)
     logger.log_hyperparams(
         {"cfg": dict(cfg), "seed": seed, "git_hash": get_current_git_hash()}
     )
-    try:
-        save_code_to_zip(os.path.join(run_dir, "code.zip"))
-    except Exception as err:
-        pylog.warning(f"code snapshot failed: {err}")
+    if is_main_process():
+        try:
+            save_code_to_zip(os.path.join(run_dir, "code.zip"))
+        except Exception as err:
+            pylog.warning(f"code snapshot failed: {err}")
     return RunSetup(run_dir, logger, seed, time.time())

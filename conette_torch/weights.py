@@ -56,6 +56,16 @@ _STATIC_TYPES = (bool, int, str)
 _STATIC_KINDS = "biuU"
 
 
+def map_tree_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """Apply ``fn(name, leaf)`` to every leaf, ``name`` as :func:`named_leaves`
+    gives it."""
+    if isinstance(tree, Mapping):
+        return {k: map_tree_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
 def to_torch(tree: Any, device: torch.device | str = "cpu") -> Any:
     """numpy (or array-like) leaves → tensors on ``device``, dtype kept;
     steering values → Python values."""

@@ -175,10 +175,26 @@ def test_caption_corpus_mixed_tasks_in_one_bucket(models, files):
     np.testing.assert_allclose([r.lprob for r in got], [r.lprob for r in want], atol=LPROB_ATOL)
 
 
+class _TwoDataRanks:
+    """The queries ``caption_corpus`` makes of a mesh whose ``data`` dim has
+    two processes."""
+
+    mesh_dim_names = ("data", "model")
+
+    def get_group(self, name):
+        return None
+
+    def get_local_rank(self, name):
+        return 0
+
+    def size(self, dim):
+        return (2, 1)[dim]
+
+
 def test_caption_corpus_rejects_what_it_does_not_take(models, files):
     _, port = models
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        caption_corpus(port, files, mesh=object())
+    with pytest.raises(ValueError, match="not divisible by mesh data=2"):
+        caption_corpus(port, files, batch_size=3, mesh=_TwoDataRanks())
     with pytest.raises(ValueError, match="len"):
         caption_corpus(port, files, task=["clotho"])
     with pytest.raises(ValueError, match="Invalid task"):

@@ -3,9 +3,10 @@ rule (numpy and stdlib code, file for file at the same path) hold the
 original's code, and the ``conf/`` tree is byte for byte the original's.
 
 Code is compared as in ``tests/test_torch_loaders.py``: the AST without
-docstrings, the JAX package's name read as the port's. The one difference
-on purpose: ``data/hdf.py`` reads and writes HDF5 through the port's
-``data/hdf5.py`` in place of h5py, so that the port needs no h5py."""
+docstrings, the JAX package's name read as the port's. The differences on
+purpose: ``data/hdf.py`` reads and writes HDF5 through the port's
+``data/hdf5.py`` in place of h5py, so that the port needs no h5py; and
+``parity.py`` joins its ``DEFAULT_OUTPUTS_DIR`` from the path's parts."""
 
 import ast
 import filecmp
@@ -18,15 +19,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = (
     ["data/__init__.py", "data/datasets.py", "data/hdf.py", "data/collate.py", "data/prefetch.py",
      "data/datamodule.py", "config/__init__.py", "config/loader.py", "utils/log_utils.py",
-     "utils/run_logger.py", "utils/dcase.py", "utils/disk_cache.py", "train/evaluation.py"]
+     "utils/run_logger.py", "utils/dcase.py", "utils/disk_cache.py", "train/evaluation.py",
+     "parity.py"]
     + sorted(os.path.relpath(os.path.join(d, f), os.path.join(REPO, "conette_tpu"))
              for d, _, fs in os.walk(os.path.join(REPO, "conette_tpu", "metrics"))
              for f in fs if f.endswith(".py"))
 )
 
+# the reference outputs' directory, which parity.py spells as a literal
+_OUTPUTS = os.path.join(os.sep, "root", "reference", "results", "detailed_outputs")
+
 # (text in the original, its replacement in the copy, occurrences)
 DIFFERENCES = {
     "data/hdf.py": [("import h5py\n", "from conette_torch.data import hdf5 as h5py\n", 2)],
+    # the same value, joined from its parts; its lazy imports read the port's
+    # tokenization/ and metrics/functional/ by the package rename alone
+    "parity.py": [(f'DEFAULT_OUTPUTS_DIR = "{_OUTPUTS}"',
+                   'DEFAULT_OUTPUTS_DIR = os.path.join(os.sep, "root", "reference", "results", '
+                   '"detailed_outputs")', 1)],
 }
 
 

@@ -3,8 +3,8 @@ the HDF5 files of both packages read in the other, ``main_train`` at tiny
 widths on HDF files packed by the JAX package's ``pack_to_hdf`` (its run
 directory holds what the JAX ``finalize_run`` writes), run directories
 that load across the two packages with equal captions, checkpoints with
-the optimizer's state, ``csum_module``, and the device and multi-card
-rules of the entry point.
+the optimizer's state, ``csum_module``, and the device and launch rules of
+the entry point.
 
 The model-backed metrics (BERTScore, FENSE, fluency) are held unavailable
 here, as on a host without their weights, so that no test reaches for a
@@ -239,15 +239,21 @@ def test_main_train_needs_cuda_unless_told_cpu(hdf_dir, tmp_path):
         pytest.skip("a CUDA device is present: the default resolves to it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main_train(_args(hdf_dir, tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # one process is one card: a mesh of two names the launch that holds it
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         main_train(_args(hdf_dir, tmp_path, "device=cpu", "trainer.data_parallel=2"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         main_train(_args(hdf_dir, tmp_path, "device=cpu", "trainer.model_parallel=2"))
 
 
 def test_main_train_refuses_several_processes(hdf_dir, tmp_path, monkeypatch):
+    """A launch of several processes without rank 0's address is refused
+    before it waits for the others (``tests/test_torch_parallel_train.py``
+    trains over two)."""
+    for var in ("MASTER_ADDR", "SLURM_NTASKS", "SLURM_JOB_NODELIST"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         main_train(_args(hdf_dir, tmp_path, "device=cpu"))
 
 
