@@ -114,7 +114,25 @@ Phases (any failure exits non-zero):
    ``caption_corpus(mesh=)`` over phase 4's 32 files against one process
    captioning 4 rows a program (each rank's share of a batch of 8); (c)
    ``train/tune.find_max_batch_size`` on the production step from 512 rows;
-9. print a details JSON line (also written to
+9. the encoders' training mode (after phase 7): (a) a full-width
+   ConvNeXt-Tiny (layer scales N(0, 0.1), bn0 drawn) trains on 8 x 10 s at
+   32 kHz through ``convnext_apply(deterministic=False,
+   drop_path_rate=0.1, gen=..., spec_augment_fn=<SpecAugmentRatio>)``,
+   binary cross-entropy of the clip probabilities against random
+   multi-hot targets, a global-norm clip and the port's AdamW: 5 timed
+   steps at f32 and 5 at bf16 compute (median CUDA-event step, peak
+   memory); a profiled bf16 step runs no custom op and no kernel of ours
+   (its route is the plain ops, as the JAX package's); the deterministic
+   bf16 encoder on the same waveforms, before and after the steps, launches
+   1 + 18 + 3 kernels and gives the same bits; one step at 2 x 10 s, f32,
+   card against CPU (``ENC_TRAIN_TOL``); (b) Cnn14 trains 5 timed steps
+   through ``pann_apply(deterministic=False, gen=...)`` with its dropout;
+   the zoo's training-mode forwards (batch statistics, no dropout) and the
+   gradients of Cnn14 (the same dropout masks, drawn on the CPU),
+   ResNet38, MobileNetV2, Res1dNet51 and Wavegram-Logmel-Cnn14, card
+   against CPU at 2 x 10 s, f32 (``PANN_REL_TOL``, ``ENC_TRAIN_TOL``, and
+   past them the conditioning bound at ``COND``);
+10. print a details JSON line (also written to
    ``chiprun_out/chip_smoke_details.json``), the card line, the ``kernels``
    JSON line and, last, the device JSON line.
 
@@ -125,6 +143,7 @@ Beside ``main``: ``parallel_alone()`` runs phase 8 on its own, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1925,6 +1944,429 @@ def prepare_phase(work_dir: str) -> dict:
                 cands=captions["cands"], pann=panns, frontends=frontends)
 
 
+# phase 9: the encoders' training mode. ConvNeXt-Tiny at full width (layer
+# scales N(0, 0.1), bn0 drawn) trains on 8 x 10 s at 32 kHz with drop-path
+# 0.1 and SpecAugmentRatio on the mel; Cnn14 with its dropout. Card against
+# CPU at 2 x 10 s, f32: the loss to 1e-5 of its value; each gradient leaf
+# to 1e-4 of its largest value; bn0's running statistics to 1e-6 of theirs
+ENC_TRAIN_STEPS = 5
+ENC_TRAIN_TOL = {"loss": 1e-5, "grads": 1e-4, "bn0_stats": 1e-6}
+ENC_TRAIN_SECONDS, ENC_CHECK_CLIPS = 10.0, 2
+# batch statistics over few values are ill-conditioned (the PANN zoo's last
+# stages normalise over tens of values a channel at 2 x 10 s), and a ReLU
+# network's gradient moves by a whole term wherever a rounding difference
+# flips a unit across zero: a PANN output that misses its tolerance is held
+# to COND times the card's own change when the waveform is scaled by 1 +
+# NUDGE·N(0, 1) (as tests/test_torch_pann_train*.py hold the port to JAX),
+# and a gradient leaf to COND_GRAD times the card's own change when the
+# waveform and every float leaf are scaled by 1 + NUDGE_GRAD·N(0, 1), about
+# how far the two devices' f32 convolutions (cuDNN's algorithms against the
+# CPU's) differ a layer; a 2-D conv's bias, whose gradient is zero in exact
+# arithmetic (a batch norm follows the conv), is held below BIAS_NOISE of
+# its weight's largest gradient on both devices (1.3e-4 seen on the card, at
+# Wavegram-Logmel-Cnn14's first conv: a sum of 128 000 terms that cancel)
+NUDGE, NUDGE_GRAD, COND, COND_GRAD, BIAS_NOISE = 1e-7, 1e-6, 4.0, 8.0, 1e-3
+PANN_GRAD_NAMES = ("cnn14", "resnet38", "mobilenetv2", "res1dnet51", "wavegram_logmel_cnn14")
+
+
+def encoder_train_params(seed: int) -> dict:
+    """Full-width ConvNeXt-Tiny from a seed, on the CPU: layer scales
+    N(0, 0.1) as phase 3 sets them, bn0 drawn as phase 2 draws it."""
+    import torch
+
+    from conette_torch.models.convnext import convnext_init
+
+    gen = torch.Generator().manual_seed(seed)
+    params = convnext_init(gen)
+    for stage in params["stages"]:
+        for block in stage:
+            block["scale"] = torch.randn(block["scale"].shape, generator=gen) * 0.1
+    params["bn0"] = random_bn0(gen, "cpu")
+    return params
+
+
+def float_leaves(tree) -> list:
+    """(name, leaf) of every floating-point tensor leaf."""
+    import torch
+
+    from conette_torch.weights import named_leaves
+
+    return [(k, t) for k, t in named_leaves(tree)
+            if isinstance(t, torch.Tensor) and t.is_floating_point()]
+
+
+def multi_hot(rng: np.random.Generator, b: int) -> np.ndarray:
+    """(b, 527) targets with 1-4 classes on a row."""
+    y = np.zeros((b, 527), np.float32)
+    for row in y:
+        row[rng.choice(527, size=rng.integers(1, 5), replace=False)] = 1.0
+    return y
+
+
+def timed_steps(one, n: int) -> dict:
+    """``one()`` once to warm up, then ``n`` times between CUDA events: the
+    step times, their median, the peak device memory of the timed steps
+    and the losses."""
+    import torch
+
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(one())
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(e) for a, e in events]
+    losses = [float(x) for x in losses]
+    assert all(np.isfinite(losses)), losses
+    return {"step_ms": times, "median_step_ms": statistics.median(times), "losses": losses,
+            "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def convnext_step_fn(params, wav, targets, compute_dtype, gen, aug_gen, drop_path_rate=0.1):
+    """The port's train step over ConvNeXt-Tiny: ``convnext_apply`` in
+    training mode (drop-path from ``gen``, SpecAugmentRatio from
+    ``aug_gen`` unless it is None), binary cross-entropy of the clip
+    probabilities, a global-norm clip at 1 and AdamW; bn0's running
+    statistics written back after each forward. Returns ``step() ->
+    loss``."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+
+    from conette_torch.models.convnext import convnext_apply
+    from conette_torch.train import optim, step
+    from conette_torch.train.augment import spec_augment_ratio
+
+    aug = None if aug_gen is None else functools.partial(spec_augment_ratio, aug_gen)
+
+    def loss_fn(p, batch, g):
+        out = convnext_apply(p, batch["wav"], deterministic=False, drop_path_rate=drop_path_rate,
+                             gen=g, compute_dtype=compute_dtype, spec_augment_fn=aug)
+        with torch.no_grad():
+            for k in ("running_mean", "running_var"):
+                p["bn0"][k].copy_(out["bn0_stats"][k])
+        return F.binary_cross_entropy(out["clipwise_output"], batch["targets"])
+
+    opt, _ = optim.get_optimizer(params, lr=1e-4, weight_decay=0.05, sched_name="none")
+    state = step.init_train_state(params, opt)
+    fn = step.make_train_step(None, grad_clip_norm=1.0, loss_fn=loss_fn)
+    batch = {"wav": wav, "targets": targets}
+
+    def one():
+        return fn(state, batch, gen)[1]["train/loss"]
+
+    return one
+
+
+def encoder_card_vs_cpu(params_cpu, wav, targets) -> dict:
+    """One ConvNeXt-Tiny training step's loss, gradients and bn0 running
+    statistics on the card against the CPU (f32, no drop-path, no
+    augmentation, from the same weights)."""
+    import torch
+    import torch.nn.functional as F
+
+    from conette_torch.models.convnext import convnext_apply
+    from conette_torch.weights import to_torch
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = to_torch(params_cpu, dev)
+        leaves = float_leaves(params)
+        for _, t in leaves:
+            t.requires_grad_()
+        res = convnext_apply(params, torch.from_numpy(wav).to(dev), deterministic=False)
+        loss = F.binary_cross_entropy(res["clipwise_output"], torch.from_numpy(targets).to(dev))
+        grads = torch.autograd.grad(loss, [t for _, t in leaves], allow_unused=True,
+                                    materialize_grads=True)
+        out[dev] = {"loss": loss.item(), "grads": {k: g.cpu() for (k, _), g in zip(leaves, grads)},
+                    "stats": {k: res["bn0_stats"][k].detach().cpu()
+                              for k in ("running_mean", "running_var")}}
+    card, cpu = out["cuda"], out["cpu"]
+    leaf_rel = {k: errors(cpu["grads"][k], card["grads"][k])[1] for k in cpu["grads"]}
+    res = {"loss_card": card["loss"], "loss_cpu": cpu["loss"],
+           "loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "grads": max(leaf_rel.values()),
+           "worst_leaves": sorted(((v, k) for k, v in leaf_rel.items()), reverse=True)[:3],
+           "bn0_stats": max(errors(cpu["stats"][k], card["stats"][k])[1] for k in cpu["stats"])}
+    print(f"  ConvNeXt-Tiny, one step card vs cpu ({ENC_CHECK_CLIPS} x {ENC_TRAIN_SECONDS:.0f} s, f32, "
+          f"no drop-path or augment): loss {card['loss']:.7f} vs {cpu['loss']:.7f} (rel "
+          f"{res['loss']:.2e}, tol {ENC_TRAIN_TOL['loss']}); gradients, each leaf relative to its "
+          f"largest value, at most {res['grads']:.2e} (tol {ENC_TRAIN_TOL['grads']}; "
+          f"{res['worst_leaves']}); bn0 running statistics {res['bn0_stats']:.2e} (tol "
+          f"{ENC_TRAIN_TOL['bn0_stats']})", flush=True)
+    for k, tol in ENC_TRAIN_TOL.items():
+        assert res[k] <= tol, (k, res[k], tol)
+    return res
+
+
+def convnext_training(dev, smi: str) -> dict:
+    """Phase 9 (a): ConvNeXt-Tiny in training mode on the card."""
+    import torch
+
+    from conette_torch.models.convnext import convnext_apply
+    from conette_torch.weights import to_torch
+
+    rng = np.random.default_rng(91)
+    wav_np = np.stack(make_clips(rng, BATCH, ENC_TRAIN_SECONDS, 32_000))
+    targets_np = multi_hot(rng, BATCH)
+    init = encoder_train_params(92)
+    wav, lens = torch.from_numpy(wav_np).to(dev), torch.full((BATCH,), wav_np.shape[1], device=dev)
+    frozen = to_torch(init, dev)  # the weights of the deterministic calls
+
+    def deterministic_call() -> tuple[dict, dict]:
+        reset_launches()
+        with torch.inference_mode():
+            out = convnext_apply(frozen, wav, lens, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in out.items()}, count_launches()
+
+    before, before_launches = deterministic_call()
+    timings, profile = {}, None
+    reset_launches()
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(dev).manual_seed(93)
+        aug_gen = torch.Generator(dev).manual_seed(94)
+        one = convnext_step_fn(to_torch(init, dev), wav, torch.from_numpy(targets_np).to(dev),
+                               dtype, gen, aug_gen)
+        timings[name] = timed_steps(one, ENC_TRAIN_STEPS)
+        if name == "bf16":
+            profile = profiled(one)
+        del one
+        print(f"  ConvNeXt-Tiny training step at {name} ({BATCH} x {ENC_TRAIN_SECONDS:.0f} s, drop-path "
+              f"0.1, SpecAugmentRatio, AdamW, clip 1): median {timings[name]['median_step_ms']:.2f} ms "
+              f"over {ENC_TRAIN_STEPS} steps ({[round(t, 2) for t in timings[name]['step_ms']]}), "
+              f"peak device memory {timings[name]['peak_memory_mib']:.0f} MiB, losses "
+              f"{[round(x, 4) for x in timings[name]['losses']]}; {smi}", flush=True)
+    train_launches = count_launches()
+    print(f"  a profiled bf16 training step: {profile['device_ms']:.2f} ms of kernels in "
+          f"{profile['wall_ms']:.2f} ms; custom op calls {profile['op_calls']}, kernel calls "
+          f"{profile['calls']}; wrapper launches over the training steps {train_launches}; top "
+          f"{profile['top']}", flush=True)
+    assert train_launches == dict.fromkeys(train_launches, 0), train_launches
+    assert profile["op_calls"] == dict.fromkeys(profile["op_calls"], 0), profile["op_calls"]
+    assert profile["calls"] == dict.fromkeys(profile["calls"], 0), profile["calls"]
+
+    after, after_launches = deterministic_call()
+    same = {k: same_bits(before[k], after[k]) for k in before}
+    print(f"  the deterministic bf16 encoder on the same waveforms, before and after the training "
+          f"steps (on memory they recycled): wrapper launches {before_launches} and "
+          f"{after_launches}, same bits {same}", flush=True)
+    want = {"logmel": 1, "convnext_block": 18, "downsample": 3}
+    assert before_launches == after_launches == want, (before_launches, after_launches)
+    assert all(same.values()), same
+    del frozen, wav, before, after
+    torch.cuda.empty_cache()
+    versus = encoder_card_vs_cpu(init, wav_np[:ENC_CHECK_CLIPS], targets_np[:ENC_CHECK_CLIPS])
+    return {"timing": timings, "profiled_bf16_step": profile, "training_launches": train_launches,
+            "deterministic_launches": after_launches, "deterministic_same_bits": same,
+            "card_vs_cpu": versus}
+
+
+@contextlib.contextmanager
+def replayed_masks(masks: list, record: bool):
+    """Dropout masks as ``layers._keep_mask`` draws them: with ``record``,
+    drawn as usual and appended to ``masks`` (on the CPU); else ``masks``
+    given back in order, on the caller's device."""
+    from conette_torch.models import layers
+
+    draw, it = layers._keep_mask, iter(list(masks))
+
+    def keep_mask(gen, shape, keep, device, cols=None):
+        if record:
+            masks.append(draw(gen, shape, keep, device, cols).cpu())
+            return masks[-1].to(device)
+        return next(it).to(device)
+
+    layers._keep_mask = keep_mask
+    try:
+        yield masks
+    finally:
+        layers._keep_mask = draw
+
+
+def pann_outputs(name, tree, wav, dev, gen=None):
+    """A PANN encoder's training-mode outputs: ``apply_pann_model``, or for
+    Cnn14 (dropout) ``pann_apply`` with ``gen``."""
+    import torch
+
+    from conette_torch.models.pann import apply_pann_model, pann_apply
+
+    w = torch.from_numpy(wav).to(dev)
+    lens = torch.full((len(wav),), wav.shape[1], device=dev)
+    if name == "cnn14":
+        return pann_apply(tree, w, lens, deterministic=False, gen=gen)
+    return apply_pann_model(name, tree, w, lens, deterministic=False)
+
+
+def nudged_np(a: np.ndarray, scale: float = NUDGE) -> np.ndarray:
+    """``a`` scaled by 1 + ``scale``·N(0, 1), drawn from a seed."""
+    return (a * (1 + scale * np.random.default_rng(0).standard_normal(a.shape))).astype(np.float32)
+
+
+def pann_grads(name, tree_np, wav, dev, masks=None, record=False, nudge=False) -> dict:
+    """Gradients over the float leaves of Σ(frame_embs · w), w drawn from a
+    seed, on ``dev``: the frame embeddings, which a captioning model trains
+    through (the clip head's max over frames would route a gradient to
+    whichever frame rounding makes the larger of two near-equal ones, on
+    either device). Cnn14's dropout masks are drawn from a CPU generator and
+    appended to ``masks`` with ``record``, else given back from ``masks``;
+    with ``nudge``, the waveform and every float leaf are scaled by 1 +
+    NUDGE_GRAD·N(0, 1)."""
+    import torch
+
+    from conette_torch.weights import to_torch
+
+    tree = to_torch(tree_np, dev)
+    leaves = float_leaves(tree)
+    if nudge:
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for _, t in leaves:
+                t.mul_(1 + NUDGE_GRAD * torch.randn(t.shape, generator=g).to(dev))
+    for _, t in leaves:
+        t.requires_grad_()
+    scope = contextlib.nullcontext() if masks is None else replayed_masks(masks, record)
+    with scope:
+        out = pann_outputs(name, tree, nudged_np(wav, NUDGE_GRAD) if nudge else wav, dev,
+                           gen=torch.Generator().manual_seed(99))
+    w = np.random.default_rng(100).standard_normal(tuple(out["frame_embs"].shape))
+    loss = (out["frame_embs"] * torch.from_numpy(w.astype(np.float32)).to(dev)).sum()
+    grads = torch.autograd.grad(loss, [t for _, t in leaves], allow_unused=True,
+                                materialize_grads=True)
+    return {k: g.cpu() for (k, _), g in zip(leaves, grads)}
+
+
+def conv_bias_of(grads: dict, k: str) -> bool:
+    """Whether leaf ``k`` is a 2-D conv's bias (its sibling weight 4-D)."""
+    weight = grads.get(k.removesuffix("bias") + "weight")
+    return k.endswith("/bias") and weight is not None and weight.ndim == 4
+
+
+def pann_training(dev, smi: str) -> dict:
+    """Phase 9 (b): Cnn14 trains on the card; the zoo's training-mode
+    forwards and five encoders' gradients, card against CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    from conette_torch.models.pann import build_pann_model, pann_apply
+    from conette_torch.train import optim, step
+    from conette_torch.weights import to_numpy, to_torch
+
+    rng = np.random.default_rng(95)
+    wav_np = np.stack(make_clips(rng, BATCH, ENC_TRAIN_SECONDS, 32_000))
+    targets = torch.from_numpy(multi_hot(rng, BATCH)).to(dev)
+    wav = torch.from_numpy(wav_np).to(dev)
+    lens = torch.full((BATCH,), wav_np.shape[1], device=dev)
+    params = to_torch(build_pann_model("cnn14", torch.Generator().manual_seed(96))[0], dev)
+
+    def loss_fn(p, batch, g):
+        out = pann_apply(p, wav, lens, deterministic=False, gen=g)
+        return F.binary_cross_entropy(out["clipwise_output"], targets)
+
+    opt, _ = optim.get_optimizer(params, lr=1e-4, weight_decay=0.05, sched_name="none")
+    state = step.init_train_state(params, opt)
+    fn = step.make_train_step(None, grad_clip_norm=1.0, loss_fn=loss_fn)
+    gen = torch.Generator(dev).manual_seed(97)
+    cnn14 = timed_steps(lambda: fn(state, {}, gen)[1]["train/loss"], ENC_TRAIN_STEPS)
+    print(f"  Cnn14 training step (f32, {BATCH} x {ENC_TRAIN_SECONDS:.0f} s, dropout 0.2 / 0.5, AdamW, "
+          f"clip 1): median {cnn14['median_step_ms']:.2f} ms over {ENC_TRAIN_STEPS} steps "
+          f"({[round(t, 2) for t in cnn14['step_ms']]}), peak device memory "
+          f"{cnn14['peak_memory_mib']:.0f} MiB, losses {[round(x, 4) for x in cnn14['losses']]}; "
+          f"{smi}", flush=True)
+    del state, opt, fn, params
+    torch.cuda.empty_cache()
+
+    check = wav_np[:ENC_CHECK_CLIPS]
+    # the decision-level heads run Cnn14's body, whose dropout needs a
+    # generator that apply_pann_model does not take: Cnn14's gradients below
+    no_dropout = [n for n in ZOO_NAMES if not n.startswith("cnn14_decisionlevel")]
+    trees = {}
+    for i, name in enumerate(dict.fromkeys(no_dropout + list(PANN_GRAD_NAMES))):
+        tree = to_numpy(build_pann_model(name, torch.Generator().manual_seed(98 + i))[0])
+        trees[name] = without_conv_biases(random_batch_norms(tree, np.random.default_rng(98 + i)))
+    forward = {}
+    for name in no_dropout:
+        with torch.no_grad():
+            cpu = pann_outputs(name, to_torch(trees[name]), check, "cpu")
+            card = pann_outputs(name, to_torch(trees[name], dev), check, dev)
+        rec = {}
+        for k, want in cpu.items():
+            got = card[k].cpu()
+            assert got.shape == want.shape and torch.isfinite(got.float()).all(), (name, k)
+            if not want.is_floating_point():
+                assert torch.equal(got, want), (name, k)
+                continue
+            rec[k] = {"rel_err": errors(want, got)[1]}
+        if max(r["rel_err"] for r in rec.values()) > PANN_REL_TOL:
+            with torch.no_grad():
+                again = pann_outputs(name, to_torch(trees[name], dev), nudged_np(check), dev)
+            for k, r in rec.items():
+                r["nudge_rel"] = errors(card[k].cpu(), again[k].cpu())[1]
+                assert r["rel_err"] <= max(PANN_REL_TOL, COND * r["nudge_rel"]), (name, k, r)
+        forward[name] = rec
+    print("  training-mode forwards, card vs CPU (2 x 10 s, f32), max error relative to the largest "
+          "value (and the card's own change on a nudged waveform, where it exceeds "
+          f"{PANN_REL_TOL}): " + "; ".join(
+              f"{n} " + ", ".join(f"{k} {r['rel_err']:.1e}" + (f" ({r['nudge_rel']:.1e})"
+                                                              if "nudge_rel" in r else "")
+                                  for k, r in rec.items()) for n, rec in forward.items()), flush=True)
+
+    grads = {}
+    for name in PANN_GRAD_NAMES:
+        masks = [] if name == "cnn14" else None
+        cpu = pann_grads(name, trees[name], check, "cpu", masks, record=True)
+        card = pann_grads(name, trees[name], check, dev, masks)
+        again, over, noise, rel, l2, over_tol = None, 0.0, 0.0, {}, {}, []
+        for k, want in cpu.items():
+            if conv_bias_of(cpu, k):
+                ratio = max(want.abs().max().item(), card[k].abs().max().item()) / max(
+                    cpu[k.removesuffix("bias") + "weight"].abs().max().item(), 1e-30)
+                noise = max(noise, ratio)
+                assert ratio <= BIAS_NOISE, (name, k, ratio)
+                continue
+            rel[k] = errors(want, card[k])[1]
+            l2[k] = float((want - card[k]).norm() / want.norm().clamp_min(1e-30))
+            if rel[k] > ENC_TRAIN_TOL["grads"]:
+                if again is None:
+                    again = pann_grads(name, trees[name], check, dev, masks, nudge=True)
+                sens = errors(card[k], again[k])[1]
+                assert rel[k] <= COND_GRAD * sens, (name, k, rel[k], sens)
+                over = max(over, rel[k] / sens)
+                over_tol.append(k)
+        grads[name] = {"max_rel_err": max(rel.values()), "worst_leaf": max(rel, key=rel.get),
+                       "max_rel_l2": max(l2.values()), "leaves": len(rel),
+                       "leaves_over_tol": over_tol, "over_tol_vs_nudge": over,
+                       "conv_bias_noise": noise, "dropout_masks": 0 if masks is None else len(masks)}
+        print(f"  {name} gradients, card vs CPU (2 x 10 s, f32"
+              f"{'' if masks is None else f', the same {len(masks)} dropout masks'}): largest leaf "
+              f"error relative to its largest value {grads[name]['max_rel_err']:.2e} "
+              f"({grads[name]['worst_leaf']}; in norm {grads[name]['max_rel_l2']:.2e}); "
+              f"{len(over_tol)} of {len(rel)} leaves over {ENC_TRAIN_TOL['grads']}, at most "
+              f"{over:.2f} times the card's own change under a {NUDGE_GRAD} nudge (tol "
+              f"{COND_GRAD}); conv-bias noise {noise:.1e} of their weights' largest gradient "
+              f"(tol {BIAS_NOISE})", flush=True)
+    return {"cnn14_timing": cnn14, "forward_card_vs_cpu": forward, "grads_card_vs_cpu": grads}
+
+
+def encoder_training_phase(smi: str) -> dict:
+    """Phase 9: the encoders' training mode at full width on the card."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    out = {"convnext": convnext_training(dev, smi)}
+    torch.cuda.empty_cache()
+    out["pann"] = pann_training(dev, smi)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 # phase 8: the parallel layer. The machine has one card, and NCCL takes one
 # rank a device: a one-process NCCL group drives the mesh path at full
 # width, and two processes share the card over gloo for the collectives.
@@ -2606,6 +3048,10 @@ def main() -> int:
         prepared = prepare_phase(work)
         prepared["phase_s"] = time.perf_counter() - t0
         print(f"  phase 7 took {prepared['phase_s']:.1f} s", flush=True)
+        print("phase 9: the encoders' training mode (ConvNeXt-Tiny and Cnn14 at full width)",
+              flush=True)
+        enc_train = encoder_training_phase(smi)
+        print(f"  phase 9 took {enc_train['phase_s']:.1f} s", flush=True)
 
     line = kernel_line(records, summary["launches"])
     for k in line["kernels"]:
@@ -2627,14 +3073,18 @@ def main() -> int:
         # and its kernel calls in a profiled call
         k["parallel_launches"] = parallel["launches"][k["name"]]
         k["parallel_replay_calls"] = parallel["sharded_caption"]["calls"][k["name"]]
+        # phase 9: the deterministic bf16 encoder after the training steps
+        # (which launch none)
+        k["encoder_training_launches"] = enc_train["convnext"]["deterministic_launches"][k["name"]]
         if min(k["launches"], k["replay_calls_per_request"], k["serving_launches"],
                k["serving_replay_calls"], k["export_launches"], k["training_launches"],
                k["training_eager_launches"], k["parallel_launches"],
-               k["parallel_replay_calls"]) <= 0:
+               k["parallel_replay_calls"], k["encoder_training_launches"]) <= 0:
             raise AssertionError(f"{k['name']} never launched on a path")
     details = json.dumps({"card": smi, "records": records, "main_path": summary,
                           "serving": served, "export": exported, "training": trained,
-                          "prepare": prepared, "parallel": parallel}, default=float)
+                          "prepare": prepared, "parallel": parallel,
+                          "encoder_training": enc_train}, default=float)
     # the whole line, which is longer than the end of the output that a
     # caller may keep
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)

@@ -152,6 +152,25 @@ def convnext_block_reference(
     """The block in plain PyTorch (NHWC; ``dw_weight`` (7, 7, 1, C) HWIO,
     ``pw1_weight`` (C, H), ``pw2_weight`` (H, C)); equal to the inference
     ``conette_tpu.models.convnext.convnext_block``."""
+    return x + block_branch(x, dw_weight, dw_bias, ln_weight, ln_bias, pw1_weight, pw1_bias,
+                            pw2_weight, pw2_bias, layer_scale, eps)
+
+
+def block_branch(
+    x: torch.Tensor,
+    dw_weight: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_weight: torch.Tensor,
+    ln_bias: torch.Tensor,
+    pw1_weight: torch.Tensor,
+    pw1_bias: torch.Tensor,
+    pw2_weight: torch.Tensor,
+    pw2_bias: torch.Tensor,
+    layer_scale: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The block's residual branch, what :func:`convnext_block_reference`
+    adds to ``x``: dwconv 7×7 → LN → W1 → GELU → W2 → layer scale."""
     c = x.shape[-1]
     y = conv2d(
         {"weight": dw_weight.reshape(7, 7, 1, c), "bias": dw_bias},
@@ -160,7 +179,7 @@ def convnext_block_reference(
     y = layer_norm({"weight": ln_weight, "bias": ln_bias}, y, eps=eps)
     y = gelu(linear({"weight": pw1_weight, "bias": pw1_bias}, y))
     y = linear({"weight": pw2_weight, "bias": pw2_bias}, y)
-    return x + y * layer_scale.to(y.dtype)
+    return y * layer_scale.to(y.dtype)
 
 
 def prepare_block_operands(

@@ -1,5 +1,5 @@
 """The PANN encoders Cnn10, Cnn14 and Cnn14_DecisionLevelAtt on tensors
-(NHWC), inference only.
+(NHWC).
 
 Counterpart of ``conette_tpu/models/pann.py`` (reference
 ``src/conette/nn/encoders/cnn10.py:23-424``, ``cnn14.py:27-216``,
@@ -21,6 +21,16 @@ frontend is the plain one (``ops/frontend.py``), as in the JAX package.
 ``build_pann_model`` and ``apply_pann_model`` take every name of
 ``PANN_ZOO_NAMES``; the other architectures and the decision-level
 max/avg heads live in ``models/pann_zoo.py``.
+
+Training mode (``deterministic=False``), as in the JAX package: every
+batch norm normalises with the batch's statistics (``conv_block`` returns
+the updated running statistics; ``pann_apply`` drops them, as JAX's does),
+and ``pann_apply`` applies dropout at ``dropout_p`` after each block and at
+0.5 twice in the clip head, its masks drawn from ``gen`` in call order.
+Without a generator that dropout raises ``ValueError`` (the JAX package
+raises ``TypeError`` for want of an rng), so ``apply_pann_model``, which
+takes no generator, raises in training mode for the Cnn family and runs
+the zoo's architectures, which have no dropout.
 """
 
 from __future__ import annotations
@@ -34,8 +44,10 @@ from conette_torch.models.layers import (
     Params,
     batch_norm_inference,
     batch_norm_init,
+    batch_norm_train,
     conv2d,
     conv2d_init,
+    dropout,
     linear,
     linear_init,
 )
@@ -58,22 +70,43 @@ def conv_block_init(gen: torch.Generator, in_ch: int, out_ch: int) -> Params:
     }
 
 
-def conv_block(params: Params, x: torch.Tensor, *, pool_size: tuple[int, int] = (2, 2)
-               ) -> torch.Tensor:
-    """NHWC PANN ``ConvBlock``; the average pool floors odd extents (the
-    JAX package's ``pool_type="max"`` has no caller and is not ported)."""
-    y = conv2d(params["conv1"], x, padding=((1, 1), (1, 1)))
-    y = torch.relu(batch_norm_inference(params["bn1"], y))
-    y = conv2d(params["conv2"], y, padding=((1, 1), (1, 1)))
-    y = torch.relu(batch_norm_inference(params["bn2"], y))
-    if pool_size == (1, 1):
-        return y
-    return avg_pool_nhwc(y, pool_size)
+def conv_block(
+    params: Params,
+    x: torch.Tensor,
+    *,
+    pool_size: tuple[int, int] = (2, 2),
+    pool_type: str = "avg",
+    deterministic: bool = True,
+) -> tuple[torch.Tensor, list[Params]]:
+    """NHWC PANN ``ConvBlock``: (y, the two batch norms with their running
+    statistics updated in training mode, else []). The pool (``"avg"`` or
+    ``"max"``) floors odd extents."""
+    new_stats: list[Params] = []
+
+    def bn(bp: Params, y: torch.Tensor) -> torch.Tensor:
+        if deterministic:
+            return batch_norm_inference(bp, y)
+        out, stats = batch_norm_train(bp, y)
+        new_stats.append(stats)
+        return out
+
+    y = torch.relu(bn(params["bn1"], conv2d(params["conv1"], x, padding=((1, 1), (1, 1)))))
+    y = torch.relu(bn(params["bn2"], conv2d(params["conv2"], y, padding=((1, 1), (1, 1)))))
+    if pool_size != (1, 1) and pool_type == "avg":
+        y = avg_pool_nhwc(y, pool_size)
+    elif pool_size != (1, 1) and pool_type == "max":
+        y = max_pool_nhwc(y, pool_size)
+    return y, new_stats
 
 
 def avg_pool_nhwc(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Average pool of NHWC with stride = window (VALID: odd extents floor)."""
     return F.avg_pool2d(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1).contiguous()
+
+
+def max_pool_nhwc(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Max pool of NHWC with stride = window (VALID: odd extents floor)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1).contiguous()
 
 
 def frame_lens(frames: torch.Tensor, input_time_len: int,
@@ -88,12 +121,16 @@ def frame_lens(frames: torch.Tensor, input_time_len: int,
     return torch.round(waveform_lens.float() / reduction).to(torch.int32)
 
 
-def clip_head(params: Params, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def clip_head(params: Params, frames: torch.Tensor, deterministic: bool = True,
+              gen: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(clip probabilities, embedding) of (B, T', C) frames: the max + mean
     over frames → relu(fc1) → sigmoid(fc_audioset); the reference returns
-    the penultimate relu(fc1) activations as "embedding" (models.py:271-277)."""
-    h = torch.relu(linear(params["fc1"], frames.amax(dim=1) + frames.mean(dim=1)))
-    return torch.sigmoid(linear(params["fc_audioset"], h)), h
+    the penultimate relu(fc1) activations as "embedding" (models.py:271-277).
+    In training mode the pooled frames and the embedding each pass a
+    dropout of 0.5 (Cnn10/Cnn14's head; the zoo's heads have none)."""
+    h = dropout(gen, frames.amax(dim=1) + frames.mean(dim=1), 0.5, deterministic)
+    h = torch.relu(linear(params["fc1"], h))
+    return torch.sigmoid(linear(params["fc_audioset"], h)), dropout(gen, h, 0.5, deterministic)
 
 
 # --------------------------------------------------------------------- init
@@ -155,6 +192,9 @@ def pann_apply(
     *,
     logmel_cfg: LogMelConfig = PANN_LOGMEL,
     waveform_input: bool = True,
+    deterministic: bool = True,
+    dropout_p: float = 0.2,
+    gen: torch.Generator | None = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """Cnn10 / Cnn14 / Cnn14_DecisionLevelAtt forward, the architecture read
@@ -162,6 +202,9 @@ def pann_apply(
 
     :param waveform: (B, T_samples), or a (B, T_frames, n_mels) log-mel
         spectrogram when ``waveform_input`` is False.
+    :param deterministic: False for training mode: batch statistics, and
+        dropout at ``dropout_p`` after each block and at 0.5 twice in the
+        clip head, drawn from ``gen`` (which it needs, else ``ValueError``).
     """
     if waveform_input:
         mel = logmel_spectrogram(waveform, logmel_cfg, compute_dtype=compute_dtype)
@@ -169,7 +212,10 @@ def pann_apply(
     else:
         mel = waveform
         input_time_len = waveform.shape[1]
-    mel = batch_norm_inference(params["bn0"], mel, axis=-1)
+    if deterministic:
+        mel = batch_norm_inference(params["bn0"], mel, axis=-1)
+    else:
+        mel, _ = batch_norm_train(params["bn0"], mel, axis=-1)
 
     x = mel[..., None].to(compute_dtype)  # (B, T, F, 1)
     n_blocks = len(params["blocks"])
@@ -177,7 +223,8 @@ def pann_apply(
         # the Cnn14 family pools (2, 2) after blocks 1-5 and not after the
         # last (cnn14.py:174-184); Cnn10 pools after all 4 (models.py:607-700)
         pool = (1, 1) if (n_blocks == 6 and i == n_blocks - 1) else (2, 2)
-        x = conv_block(block, x, pool_size=pool)
+        x, _ = conv_block(block, x, pool_size=pool, deterministic=deterministic)
+        x = dropout(gen, x, dropout_p, deterministic)
 
     frames = x.float().mean(dim=2)  # (B, T', C): the frequency mean
     out: dict[str, torch.Tensor] = {"frame_embs": frames.transpose(1, 2),
@@ -198,7 +245,7 @@ def pann_apply(
         mel_frames = input_time_len // logmel_cfg.hop_length + 1 if waveform_input else input_time_len
         out["framewise_output"] = _framewise(cla, mel_frames)
     else:
-        out["clipwise_output"], out["embedding"] = clip_head(params, frames)
+        out["clipwise_output"], out["embedding"] = clip_head(params, frames, deterministic, gen)
     return out
 
 
@@ -272,22 +319,20 @@ def apply_pann_model(
     configuration (reference ``classtype(**kwargs)`` + ``model(input)``,
     ``pann_utils/hub.py:14-56``). LeeNet, DaiNet, Res1dNet and
     Wavegram_Cnn14 take no ``waveform_lens``, as in the JAX package: their
-    ``frame_embs_lens`` are the full frame count. The port runs the
-    encoders for inference only: ``deterministic=False`` (batch statistics
-    and dropout) raises (ROADMAP Queue 1 item 6)."""
+    ``frame_embs_lens`` are the full frame count. ``deterministic=False``
+    is training mode (module docstring): it raises ``ValueError`` for the
+    Cnn family, whose dropout needs a generator that this call does not
+    take (the JAX package's raises ``TypeError`` for want of an rng)."""
     from conette_torch.models import pann_zoo as zoo
 
-    if not deterministic:
-        raise NotImplementedError(
-            "the PANN encoders' training mode (deterministic=False) is not ported "
-            "(ROADMAP Queue 1 item 6)")
-
     name_l = name.lower()
-    kw: dict[str, Any] = dict(compute_dtype=compute_dtype)
+    kw: dict[str, Any] = dict(deterministic=deterministic, compute_dtype=compute_dtype)
     cfgs = {"cnn14_16k": zoo.PANN_LOGMEL_16K, "cnn14_8k": zoo.PANN_LOGMEL_8K,
             "cnn14_mel32": zoo.PANN_LOGMEL32, "cnn14_mel128": zoo.PANN_LOGMEL128}
+    if name_l == "cnn14_no_dropout":
+        return pann_apply(params, waveform, waveform_lens, dropout_p=0.0, **kw)
     if name_l in ("cnn10", "cnn14", "cnn14_decisionlevelatt", "cnn14_att", "cnn14_emb512",
-                  "cnn14_emb128", "cnn14_emb32", "cnn14_no_specaug", "cnn14_no_dropout",
+                  "cnn14_emb128", "cnn14_emb32", "cnn14_no_specaug",
                   "cnn14_mixup_time_domain") or name_l in cfgs:
         return pann_apply(params, waveform, waveform_lens, logmel_cfg=cfgs.get(name_l, PANN_LOGMEL),
                           **kw)

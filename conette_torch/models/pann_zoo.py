@@ -1,5 +1,5 @@
 """The PANN zoo beyond Cnn10/Cnn14 on tensors (NHWC, NWC for the 1-D
-models), inference only.
+models).
 
 Counterpart of ``conette_tpu/models/pann_zoo.py`` over the reference's
 vendored PANN zoo (``src/conette/nn/pann_utils/models.py``), with the same
@@ -21,7 +21,9 @@ The trees hold Python values that steer the forward (``"stride"``,
 as the JAX package's do; ``weights.to_torch`` keeps them as Python values,
 so the forward reads no tensor on the host. The log-mel frontend is the
 plain one (``ops/frontend.py``), as in the JAX package; every name runs
-through ``models/pann.py::apply_pann_model``.
+through ``models/pann.py::apply_pann_model``. In training mode
+(``deterministic=False``) every batch norm normalises with the batch's
+statistics; as in the JAX package these architectures apply no dropout.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ import torch.nn.functional as F
 
 from conette_torch.models.layers import (
     Params,
+    batch_norm_inference,
     batch_norm_init,
+    batch_norm_train,
     cast,
     conv2d,
     conv2d_init,
@@ -40,7 +44,6 @@ from conette_torch.models.layers import (
     linear_init,
     uniform_fan_in,
 )
-from conette_torch.models.layers import batch_norm_inference as _bn
 from conette_torch.models.pann import (
     PANN_LOGMEL,
     avg_pool_nhwc,
@@ -65,6 +68,15 @@ PANN_LOGMEL_8K = LogMelConfig(
 
 
 # ------------------------------------------------------------------ helpers
+def _bn(params: Params, x: torch.Tensor, deterministic: bool) -> torch.Tensor:
+    """BN over the last axis: running statistics, or in training mode the
+    batch's (the updated running statistics are dropped, as in the JAX
+    package)."""
+    if deterministic:
+        return batch_norm_inference(params, x)
+    return batch_norm_train(params, x)[0]
+
+
 def _avg_pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
     """k×k average pool of NHWC, stride k (odd extents floor)."""
     return avg_pool_nhwc(x, (k, k))
@@ -75,10 +87,10 @@ def _relu6(x: torch.Tensor) -> torch.Tensor:
 
 
 def _logmel_input(params: Params, waveform: torch.Tensor, cfg: LogMelConfig,
-                  compute_dtype: torch.dtype) -> torch.Tensor:
+                  compute_dtype: torch.dtype, deterministic: bool) -> torch.Tensor:
     """(B, T) waveform → bn0(log-mel) as (B, frames, mels, 1)."""
     mel = logmel_spectrogram(waveform, cfg, compute_dtype=compute_dtype)
-    return _bn(params["bn0"], mel)[..., None].to(compute_dtype)
+    return _bn(params["bn0"], mel, deterministic)[..., None].to(compute_dtype)
 
 
 def _outputs(params: Params, x: torch.Tensor, input_time_len: int,
@@ -162,15 +174,17 @@ def _basic_block_init(gen: torch.Generator, inplanes: int, planes: int, stride: 
     return p
 
 
-def _basic_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _basic_block(p: Params, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
     identity = x
     out = _avg_pool(x) if p["stride"] == 2 else x
-    out = torch.relu(_bn(p["bn1"], conv2d(p["conv1"], out, padding=((1, 1), (1, 1)))))
-    out = _bn(p["bn2"], conv2d(p["conv2"], out, padding=((1, 1), (1, 1))))
+    out = torch.relu(_bn(p["bn1"], conv2d(p["conv1"], out, padding=((1, 1), (1, 1))),
+                         deterministic))
+    out = _bn(p["bn2"], conv2d(p["conv2"], out, padding=((1, 1), (1, 1))), deterministic)
     if "downsample" in p:
         if p["stride"] == 2:
             identity = _avg_pool(identity)
-        identity = _bn(p["downsample"]["bn"], conv2d(p["downsample"]["conv"], identity))
+        identity = _bn(p["downsample"]["bn"], conv2d(p["downsample"]["conv"], identity),
+                       deterministic)
     return torch.relu(out + identity)
 
 
@@ -245,29 +259,32 @@ def pann_zoo_apply(
     *,
     arch: str,
     logmel_cfg: LogMelConfig = PANN_LOGMEL,
+    deterministic: bool = True,
     compute_dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """ResNet22/38 (``arch="resnet22"``) or MobileNetV1 forward."""
-    x = _logmel_input(params, waveform, logmel_cfg, compute_dtype)
+    det = deterministic
+    x = _logmel_input(params, waveform, logmel_cfg, compute_dtype, det)
     if arch == "resnet22":
-        x = conv_block(params["conv_block1"], x)
+        x, _ = conv_block(params["conv_block1"], x, deterministic=det)
         for stage in params["layers"]:
             for block in stage:
-                x = _basic_block(block, x)
-        x = conv_block(params["conv_block_after1"], _avg_pool(x), pool_size=(1, 1))
+                x = _basic_block(block, x, det)
+        x, _ = conv_block(params["conv_block_after1"], _avg_pool(x), pool_size=(1, 1),
+                          deterministic=det)
     elif arch == "mobilenetv1":
         for layer in params["features"]:
             if layer["kind"] == "bn":
                 x = conv2d(layer["conv"], x, padding=((1, 1), (1, 1)))
                 if layer["stride"] > 1:
                     x = _avg_pool(x, layer["stride"])
-                x = torch.relu(_bn(layer["bn"], x))
+                x = torch.relu(_bn(layer["bn"], x, det))
             else:
                 x = conv2d(layer["dwconv"], x, padding=((1, 1), (1, 1)), groups=x.shape[-1])
                 if layer["stride"] > 1:
                     x = _avg_pool(x, layer["stride"])
-                x = torch.relu(_bn(layer["bn1"], x))
-                x = torch.relu(_bn(layer["bn2"], conv2d(layer["pwconv"], x)))
+                x = torch.relu(_bn(layer["bn1"], x, det))
+                x = torch.relu(_bn(layer["bn2"], conv2d(layer["pwconv"], x), det))
     else:
         raise ValueError(f"Unknown arch {arch!r}")
     return _outputs(params, x, waveform.shape[-1], waveform_lens)
@@ -282,8 +299,8 @@ def conv_block5x5_init(gen: torch.Generator, in_ch: int, out_ch: int) -> Params:
     }
 
 
-def conv_block5x5(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = torch.relu(_bn(p["bn1"], conv2d(p["conv1"], x, padding=((2, 2), (2, 2)))))
+def conv_block5x5(p: Params, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+    y = torch.relu(_bn(p["bn1"], conv2d(p["conv1"], x, padding=((2, 2), (2, 2))), deterministic))
     return _avg_pool(y)
 
 
@@ -303,12 +320,13 @@ def cnn6_apply(
     waveform_lens: torch.Tensor | None = None,
     *,
     logmel_cfg: LogMelConfig = PANN_LOGMEL,
+    deterministic: bool = True,
     compute_dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """Cnn6 forward (models.py:497-605): 4 ConvBlock5x5 stages."""
-    x = _logmel_input(params, waveform, logmel_cfg, compute_dtype)
+    x = _logmel_input(params, waveform, logmel_cfg, compute_dtype, deterministic)
     for block in params["blocks"]:
-        x = conv_block5x5(block, x)
+        x = conv_block5x5(block, x, deterministic)
     return _outputs(params, x, waveform.shape[-1], waveform_lens)
 
 
@@ -322,11 +340,12 @@ def _pre_wav_block_init(gen: torch.Generator, in_ch: int, out_ch: int) -> Params
     }
 
 
-def _pre_wav_block(p: Params, x: torch.Tensor, pool: int) -> torch.Tensor:
+def _pre_wav_block(p: Params, x: torch.Tensor, pool: int, deterministic: bool = True
+                   ) -> torch.Tensor:
     """ConvPreWavBlock (models.py:2700-2740): conv1d k3 → BN → ReLU →
     dilated conv1d k3 d2 → BN → ReLU → max pool."""
-    y = torch.relu(_bn(p["bn1"], _conv1d(p["conv1"], x, padding=1)))
-    y = torch.relu(_bn(p["bn2"], _conv1d(p["conv2"], y, padding=2, dilation=2)))
+    y = torch.relu(_bn(p["bn1"], _conv1d(p["conv1"], x, padding=1), deterministic))
+    y = torch.relu(_bn(p["bn2"], _conv1d(p["conv2"], y, padding=2, dilation=2), deterministic))
     return _max_pool1d(y, pool)
 
 
@@ -343,25 +362,27 @@ def _wavegram_init(gen: torch.Generator, pre3_out: int) -> Params:
     }
 
 
-def _wavegram(params: Params, waveform: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+def _wavegram(params: Params, waveform: torch.Tensor, compute_dtype: torch.dtype,
+              deterministic: bool) -> torch.Tensor:
     """(B, T) waveform → (B, T/640, C3/4, 64) NHWC: stride 5 · 3 × pool 4
     (/320, the hop of the spectrogram frames), the C3 channels of
     ``pre_block3`` as 4 groups of C3/4 "frequencies" (channel c = g·C3/4 +
     f, models.py:3103-3107), then ``pre_block4`` with a (2, 1) pool."""
     a = waveform[:, :, None].to(compute_dtype)
-    a = torch.relu(_bn(params["pre_bn0"], _conv1d(params["pre_conv0"], a, stride=5, padding=5)))
+    a = torch.relu(_bn(params["pre_bn0"], _conv1d(params["pre_conv0"], a, stride=5, padding=5),
+                       deterministic))
     for name in ("pre_block1", "pre_block2", "pre_block3"):
-        a = _pre_wav_block(params[name], a, 4)
+        a = _pre_wav_block(params[name], a, 4, deterministic)
     b, t, c = a.shape
     a = a.reshape(b, t, 4, c // 4).permute(0, 1, 3, 2)
-    return conv_block(params["pre_block4"], a, pool_size=(2, 1))
+    return conv_block(params["pre_block4"], a, pool_size=(2, 1), deterministic=deterministic)[0]
 
 
-def _cnn14_tail(blocks: list[Params], x: torch.Tensor) -> torch.Tensor:
+def _cnn14_tail(blocks: list[Params], x: torch.Tensor, deterministic: bool) -> torch.Tensor:
     """Cnn14's conv blocks after the first: 2×2 pools, none after the last."""
     for block in blocks[:-1]:
-        x = conv_block(block, x)
-    return conv_block(blocks[-1], x, pool_size=(1, 1))
+        x, _ = conv_block(block, x, deterministic=deterministic)
+    return conv_block(blocks[-1], x, pool_size=(1, 1), deterministic=deterministic)[0]
 
 
 # ---------------------------------------------------- Wavegram_Logmel_Cnn14
@@ -393,17 +414,21 @@ def wavegram_logmel_cnn14_apply(
     waveform_lens: torch.Tensor | None = None,
     *,
     logmel_cfg: LogMelConfig = PANN_LOGMEL,
+    deterministic: bool = True,
     compute_dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """Wavegram + log-mel dual-branch Cnn14 (models.py:2842-3131; the
     128-mel variant with ``PANN_LOGMEL128``): the wavegram map joins the
     log-mel branch's channels after its first conv block, both cut to their
     common time (and frequency) extent."""
-    a = _wavegram(params, waveform, compute_dtype)
-    x = conv_block(params["blocks"][0], _logmel_input(params, waveform, logmel_cfg, compute_dtype))
+    det = deterministic
+    a = _wavegram(params, waveform, compute_dtype, det)
+    x, _ = conv_block(params["blocks"][0],
+                      _logmel_input(params, waveform, logmel_cfg, compute_dtype, det),
+                      deterministic=det)
     t_min, f_min = min(x.shape[1], a.shape[1]), min(x.shape[2], a.shape[2])
     x = torch.cat([x[:, :t_min, :f_min], a[:, :t_min, :f_min]], dim=-1)
-    x = _cnn14_tail(params["blocks"][1:], x)
+    x = _cnn14_tail(params["blocks"][1:], x, det)
     return _outputs(params, x, waveform.shape[-1], waveform_lens)
 
 
@@ -413,12 +438,13 @@ def wavegram_logmel128_cnn14_apply(
     waveform_lens: torch.Tensor | None = None,
     *,
     logmel_cfg: LogMelConfig = PANN_LOGMEL128,
+    deterministic: bool = True,
     compute_dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """Wavegram_Logmel128_Cnn14: :func:`wavegram_logmel_cnn14_apply` with the
     128-mel frontend by default."""
     return wavegram_logmel_cnn14_apply(params, waveform, waveform_lens, logmel_cfg=logmel_cfg,
-                                       compute_dtype=compute_dtype)
+                                       deterministic=deterministic, compute_dtype=compute_dtype)
 
 
 # ------------------------------------------------------------ Wavegram_Cnn14
@@ -437,9 +463,10 @@ def wavegram_cnn14_init(gen: torch.Generator, num_classes: int = NUM_CLASSES) ->
     }
 
 
-def wavegram_cnn14_apply(params: Params, waveform: torch.Tensor, *,
+def wavegram_cnn14_apply(params: Params, waveform: torch.Tensor, *, deterministic: bool = True,
                          compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
-    x = _cnn14_tail(params["blocks"], _wavegram(params, waveform, compute_dtype))
+    x = _cnn14_tail(params["blocks"], _wavegram(params, waveform, compute_dtype, deterministic),
+                    deterministic)
     return _outputs(params, x, waveform.shape[-1], None)
 
 
@@ -464,17 +491,17 @@ def _inverted_residual_init(gen: torch.Generator, inp: int, oup: int, stride: in
     return p
 
 
-def _inverted_residual(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _inverted_residual(p: Params, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
     """PANN InvertedResidual (models.py:1807-1862): the stride is an average
     pool after the depthwise conv; ReLU6; a linear projection."""
     y = x
     if p["expand"] != 1:
-        y = _relu6(_bn(p["expand_bn"], conv2d(p["expand_conv"], y)))
+        y = _relu6(_bn(p["expand_bn"], conv2d(p["expand_conv"], y), deterministic))
     y = conv2d(p["dwconv"], y, padding=((1, 1), (1, 1)), groups=y.shape[-1])
     if p["stride"] == 2:
         y = _avg_pool(y)
-    y = _relu6(_bn(p["dw_bn"], y))
-    y = _bn(p["project_bn"], conv2d(p["project_conv"], y))
+    y = _relu6(_bn(p["dw_bn"], y, deterministic))
+    y = _bn(p["project_bn"], conv2d(p["project_conv"], y), deterministic)
     return x + y if p["use_res"] else y
 
 
@@ -504,15 +531,17 @@ def mobilenetv2_apply(
     waveform_lens: torch.Tensor | None = None,
     *,
     logmel_cfg: LogMelConfig = PANN_LOGMEL,
+    deterministic: bool = True,
     compute_dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
     """MobileNetV2 forward (models.py:1863-2020)."""
-    x = _logmel_input(params, waveform, logmel_cfg, compute_dtype)
+    det = deterministic
+    x = _logmel_input(params, waveform, logmel_cfg, compute_dtype, det)
     x = _avg_pool(conv2d(params["stem_conv"], x, padding=((1, 1), (1, 1))))
-    x = _relu6(_bn(params["stem_bn"], x))
+    x = _relu6(_bn(params["stem_bn"], x, det))
     for block in params["blocks"]:
-        x = _inverted_residual(block, x)
-    x = _relu6(_bn(params["head_bn"], conv2d(params["head_conv"], x)))
+        x = _inverted_residual(block, x, det)
+    x = _relu6(_bn(params["head_bn"], conv2d(params["head_conv"], x), det))
     return _outputs(params, x, waveform.shape[-1], waveform_lens)
 
 
@@ -531,10 +560,11 @@ def _leenet_block_init(gen: torch.Generator, in_ch: int, out_ch: int, double: bo
     return p
 
 
-def _leenet_block(p: Params, x: torch.Tensor, stride: int, pool: int) -> torch.Tensor:
-    y = torch.relu(_bn(p["bn1"], _conv1d(p["conv1"], x, stride=stride, padding=1)))
+def _leenet_block(p: Params, x: torch.Tensor, stride: int, pool: int,
+                  deterministic: bool = True) -> torch.Tensor:
+    y = torch.relu(_bn(p["bn1"], _conv1d(p["conv1"], x, stride=stride, padding=1), deterministic))
     if "conv2" in p:
-        y = torch.relu(_bn(p["bn2"], _conv1d(p["conv2"], y, padding=1)))
+        y = torch.relu(_bn(p["bn2"], _conv1d(p["conv2"], y, padding=1), deterministic))
     return _max_pool1d_pad(y, pool) if pool != 1 else y
 
 
@@ -553,7 +583,7 @@ def leenet_init(gen: torch.Generator, variant: str = "leenet11",
     }
 
 
-def leenet_apply(params: Params, waveform: torch.Tensor, *,
+def leenet_apply(params: Params, waveform: torch.Tensor, *, deterministic: bool = True,
                  compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     x = waveform[:, :, None].to(compute_dtype)  # (B, T, 1) NWC
     n = len(params["blocks"])
@@ -561,7 +591,7 @@ def leenet_apply(params: Params, waveform: torch.Tensor, *,
         # LeeNet24's last block is called with pool_size=1 (models.py:2230);
         # LeeNet11 pools every block but the first (models.py:2098-2106)
         pool = 1 if i == 0 or (params.get("double") and i == n - 1) else 3
-        x = _leenet_block(block, x, 3 if i == 0 else 1, pool)
+        x = _leenet_block(block, x, 3 if i == 0 else 1, pool, deterministic)
     return _outputs(params, x, waveform.shape[-1], None, freq_mean=False)
 
 
@@ -579,15 +609,17 @@ def _dainet_res_block_init(gen: torch.Generator, in_ch: int, out_ch: int) -> Par
     return p
 
 
-def _dainet_res_block(p: Params, x: torch.Tensor, pool: int) -> torch.Tensor:
+def _dainet_res_block(p: Params, x: torch.Tensor, pool: int, deterministic: bool = True
+                      ) -> torch.Tensor:
     """DaiNetResBlock (models.py:2230-2300): 4 conv1d + BN with a residual;
     DaiNet19.forward's max pool after it is unpadded (models.py:2363-2369),
     unlike LeeNet's."""
     y = x
     for i in range(1, 4):
-        y = torch.relu(_bn(p[f"bn{i}"], _conv1d(p[f"conv{i}"], y, padding=1)))
-    y = _bn(p["bn4"], _conv1d(p["conv4"], y, padding=1))
-    idn = _bn(p["bn_downsample"], _conv1d(p["downsample"], x)) if "downsample" in p else x
+        y = torch.relu(_bn(p[f"bn{i}"], _conv1d(p[f"conv{i}"], y, padding=1), deterministic))
+    y = _bn(p["bn4"], _conv1d(p["conv4"], y, padding=1), deterministic)
+    idn = (_bn(p["bn_downsample"], _conv1d(p["downsample"], x), deterministic)
+           if "downsample" in p else x)
     y = torch.relu(y + idn)
     return _max_pool1d(y, pool) if pool != 1 else y
 
@@ -603,14 +635,14 @@ def dainet_init(gen: torch.Generator, num_classes: int = NUM_CLASSES) -> Params:
     }
 
 
-def dainet_apply(params: Params, waveform: torch.Tensor, *,
+def dainet_apply(params: Params, waveform: torch.Tensor, *, deterministic: bool = True,
                  compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """DaiNet19: conv0 k80 s4 → BN with no ReLU (models.py:2361-2363) → 4
     residual blocks, a max pool 4 after each of the first three."""
     x = waveform[:, :, None].to(compute_dtype)
-    x = _bn(params["bn0"], _conv1d(params["conv0"], x, stride=4))
+    x = _bn(params["bn0"], _conv1d(params["conv0"], x, stride=4), deterministic)
     for i, block in enumerate(params["blocks"]):
-        x = _dainet_res_block(block, x, 4 if i < 3 else 1)
+        x = _dainet_res_block(block, x, 4 if i < 3 else 1, deterministic)
     return _outputs(params, x, waveform.shape[-1], None, freq_mean=False)
 
 
@@ -636,15 +668,16 @@ def _bottleneck_init(gen: torch.Generator, inplanes: int, planes: int, stride: i
     return p
 
 
-def _bottleneck(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _bottleneck(p: Params, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
     if p["stride"] == 2:
         x = _avg_pool(x)
-    out = torch.relu(_bn(p["bn1"], conv2d(p["conv1"], x)))
-    out = torch.relu(_bn(p["bn2"], conv2d(p["conv2"], out, padding=((1, 1), (1, 1)))))
-    out = _bn(p["bn3"], conv2d(p["conv3"], out))
+    out = torch.relu(_bn(p["bn1"], conv2d(p["conv1"], x), deterministic))
+    out = torch.relu(_bn(p["bn2"], conv2d(p["conv2"], out, padding=((1, 1), (1, 1))),
+                         deterministic))
+    out = _bn(p["bn3"], conv2d(p["conv3"], out), deterministic)
     identity = x
     if "downsample" in p:
-        identity = _bn(p["downsample"]["bn"], conv2d(p["downsample"]["conv"], x))
+        identity = _bn(p["downsample"]["bn"], conv2d(p["downsample"]["conv"], x), deterministic)
     return torch.relu(out + identity)
 
 
@@ -676,13 +709,18 @@ def resnet54_apply(
     waveform_lens: torch.Tensor | None = None,
     *,
     logmel_cfg: LogMelConfig = PANN_LOGMEL,
+    deterministic: bool = True,
     compute_dtype: torch.dtype = torch.float32,
 ) -> dict[str, torch.Tensor]:
-    x = conv_block(params["conv_block1"], _logmel_input(params, waveform, logmel_cfg, compute_dtype))
+    det = deterministic
+    x, _ = conv_block(params["conv_block1"],
+                      _logmel_input(params, waveform, logmel_cfg, compute_dtype, det),
+                      deterministic=det)
     for stage in params["layers"]:
         for block in stage:
-            x = _bottleneck(block, x)
-    x = conv_block(params["conv_block_after1"], _avg_pool(x), pool_size=(1, 1))
+            x = _bottleneck(block, x, det)
+    x, _ = conv_block(params["conv_block_after1"], _avg_pool(x), pool_size=(1, 1),
+                      deterministic=det)
     return _outputs(params, x, waveform.shape[-1], waveform_lens)
 
 
@@ -712,15 +750,17 @@ def _wav1d_block_init(gen: torch.Generator, inplanes: int, planes: int, stride: 
     return p
 
 
-def _wav1d_block(p: Params, x: torch.Tensor) -> torch.Tensor:
+def _wav1d_block(p: Params, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
     out = _max_pool1d(x, p["stride"]) if p["stride"] != 1 else x
-    out = torch.relu(_bn(p["bn1"], _conv1d(p["conv1"], out, padding=1)))
-    out = _bn(p["bn2"], _conv1d(p["conv2"], out, padding=2, dilation=2))
+    out = torch.relu(_bn(p["bn1"], _conv1d(p["conv1"], out, padding=1), deterministic))
+    # the reference's dropout of 0.1 here in training, which the JAX package leaves out
+    out = _bn(p["bn2"], _conv1d(p["conv2"], out, padding=2, dilation=2), deterministic)
     identity = x
     if "downsample" in p:
         if p["stride"] != 1:
             identity = _avg_pool1d(identity, p["stride"])
-        identity = _bn(p["downsample"]["bn"], _conv1d(p["downsample"]["conv"], identity))
+        identity = _bn(p["downsample"]["bn"], _conv1d(p["downsample"]["conv"], identity),
+                       deterministic)
     return torch.relu(out + identity)
 
 
@@ -744,13 +784,13 @@ def res1dnet_init(gen: torch.Generator, variant: str = "res1dnet31",
     return params
 
 
-def res1dnet_apply(params: Params, waveform: torch.Tensor, *,
+def res1dnet_apply(params: Params, waveform: torch.Tensor, *, deterministic: bool = True,
                    compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     x = waveform[:, :, None].to(compute_dtype)
-    x = _bn(params["bn0"], _conv1d(params["conv0"], x, stride=5, padding=5))
+    x = _bn(params["bn0"], _conv1d(params["conv0"], x, stride=5, padding=5), deterministic)
     for stage in params["layers"]:
         for block in stage:
-            x = _wav1d_block(block, x)
+            x = _wav1d_block(block, x, deterministic)
     return _outputs(params, x, waveform.shape[-1], None, freq_mean=False)
 
 
@@ -762,17 +802,21 @@ def cnn14_decisionlevel_apply(
     *,
     pooling: str = "max",
     logmel_cfg: LogMelConfig = PANN_LOGMEL,
+    deterministic: bool = True,
     compute_dtype: torch.dtype = torch.float32,
+    interpolate_ratio: int = 32,
 ) -> dict[str, torch.Tensor]:
     """Cnn14_DecisionLevelMax/Avg (models.py:3731-3858 / 3859-3990): Cnn14's
     body → the segments' k3 max + avg smoothing → a sigmoid head a segment;
     the clip output is their max (or mean), the framewise output the
-    segments repeated ×32 to the spectrogram's frame count. Parameters:
-    ``cnn14_init``'s."""
+    segments repeated ``interpolate_ratio`` times to the spectrogram's frame
+    count. Parameters: ``cnn14_init``'s. In training mode the body is
+    ``pann_apply``'s, whose dropout needs a generator that this call does
+    not take: it raises, as the JAX package's does for want of an rng."""
     if pooling not in ("max", "avg"):
         raise ValueError(f"Invalid {pooling=} (expected 'max' or 'avg').")
     body = pann_apply(params, waveform, waveform_lens, logmel_cfg=logmel_cfg,
-                      compute_dtype=compute_dtype)
+                      deterministic=deterministic, compute_dtype=compute_dtype)
     frames = body["frame_embs"].transpose(1, 2)  # (B, T', 2048)
     smoothed = _pool1d_same(frames, "max") + _pool1d_same(frames, "avg")
     h = torch.relu(linear(params["fc1"], smoothed))
@@ -783,6 +827,6 @@ def cnn14_decisionlevel_apply(
         "frame_embs": body["frame_embs"],
         "frame_embs_lens": body["frame_embs_lens"],
         "clipwise_output": clip,
-        "framewise_output": _framewise(segments, mel_frames),
+        "framewise_output": _framewise(segments, mel_frames, interpolate_ratio),
         "embedding": h.amax(dim=1),
     }

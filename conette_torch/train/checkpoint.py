@@ -9,7 +9,15 @@ names and layout, ``huggingface/convert.py::save_params_npz``),
 other; the optimizer state is each package's own (here the ``torch.optim``
 state of each parameter, keyed by its name).
 
-The ``orbax`` backend of the JAX package has no counterpart.
+``backend="orbax"`` (the name the JAX package's callers pass for its
+sharded, multi-host orbax tree) writes the parameter tree in its place with
+``torch.distributed.checkpoint`` under ``dcp/``: each process writes its
+own blocks of a tree split over a mesh's ``model`` dim, one of them each
+replicated leaf, and ``load_checkpoint`` reads it back whole, in the
+one-process layout. The tree's Python values (the PANN zoo's strides,
+kinds and flags) go beside it in ``dcp/values.json``, so the reader
+unpickles nothing. The port cannot read a JAX ``orbax/`` tree
+(tensorstore), and says so.
 """
 
 from __future__ import annotations
@@ -19,18 +27,21 @@ import logging
 import os
 import re
 import shutil
+import warnings
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from conette_torch.huggingface.convert import (
     flatten_pytree,
     load_params_npz,
     unflatten_pytree,
 )
+from conette_torch.parallel.distributed import is_main_process
 from conette_torch.tokenization import AACTokenizer
-from conette_torch.weights import save_tree, to_torch
+from conette_torch.weights import named_leaves, save_tree, to_torch
 
 pylog = logging.getLogger(__name__)
 
@@ -44,43 +55,115 @@ def save_checkpoint(
     meta: dict | None = None,
     tokenizer: AACTokenizer | None = None,
     backend: str = "npz",
+    mesh: Any = None,
 ) -> str:
     """Write ``params`` (a tree of tensors or arrays), the optimizer's state
     (an optimizer, or its state as :func:`flatten_opt_state` lays it out),
     ``meta.json`` (``{"step": step} | meta``) and the tokenizer into
-    ``ckpt_dir``."""
-    if backend != "npz":
-        raise NotImplementedError(
-            f"checkpoint backend {backend!r}: conette_torch writes npz only "
-            "(the JAX package's orbax backend has no counterpart here)")
+    ``ckpt_dir``.
+
+    ``backend="npz"`` writes ``params.npz``; ``"orbax"`` writes ``dcp/``
+    (module docstring), a collective of every process of the group. With
+    ``mesh``, ``params`` holds this process's blocks as the sharded train
+    step leaves them (``parallel/mesh.py::leaf_sharding``), and an optimizer
+    is gathered to the one-process layout (``step.gather_opt_state``, a
+    collective); the main process writes the files beside the tree."""
+    if backend not in ("npz", "orbax"):
+        raise ValueError(f"unknown checkpoint backend {backend!r} (npz or orbax)")
+    if mesh is not None and backend == "npz":
+        raise ValueError("a tree split over a mesh is written with backend='orbax'; "
+                         "for params.npz gather it first (step.gather_params)")
     os.makedirs(ckpt_dir, exist_ok=True)
-    save_tree(os.path.join(ckpt_dir, "params.npz"), params)
-    if opt_state is not None:
-        if isinstance(opt_state, torch.optim.Optimizer):
-            opt_state = flatten_opt_state(opt_state)
-        np.savez(os.path.join(ckpt_dir, "opt_state.npz"), **opt_state)
-    with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
-        json.dump({"step": step} | (meta or {}), f, indent=2)
-    if tokenizer is not None:
-        tokenizer.save_file(os.path.join(ckpt_dir, "tokenizer.json"))
+    if backend == "orbax":
+        _save_dcp_tree(os.path.join(ckpt_dir, "dcp"), params, mesh)
+    else:
+        save_tree(os.path.join(ckpt_dir, "params.npz"), params)
+    if isinstance(opt_state, torch.optim.Optimizer) and mesh is not None:
+        from conette_torch.train.step import gather_opt_state
+
+        opt_state = gather_opt_state(opt_state, mesh)
+    if is_main_process():
+        if opt_state is not None:
+            if isinstance(opt_state, torch.optim.Optimizer):
+                opt_state = flatten_opt_state(opt_state)
+            np.savez(os.path.join(ckpt_dir, "opt_state.npz"), **opt_state)
+        with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+            json.dump({"step": step} | (meta or {}), f, indent=2)
+        if tokenizer is not None:
+            tokenizer.save_file(os.path.join(ckpt_dir, "tokenizer.json"))
+    if backend == "orbax" and dist.is_initialized():
+        dist.barrier()  # every process returns once the whole checkpoint is written
     return ckpt_dir
+
+
+def _save_dcp_tree(path: str, params: Any, mesh: Any = None) -> None:
+    """``params`` with ``torch.distributed.checkpoint`` under ``path``: its
+    tensor leaves by ``named_leaves`` name (as ``DTensor``s of ``mesh`` with
+    ``leaf_sharding``'s placements where a mesh is given), its Python values
+    in ``values.json``. Every process of the group calls it."""
+    import torch.distributed.checkpoint as dcp
+
+    tensors, values = {}, {}
+    for name, leaf in named_leaves(params):
+        if isinstance(leaf, (bool, int, str)):
+            values[name] = leaf
+            continue
+        t = leaf.detach() if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.asarray(leaf))
+        if mesh is not None:
+            from torch.distributed.tensor import DTensor
+
+            from conette_torch.parallel.mesh import leaf_sharding
+
+            t = DTensor.from_local(t, mesh, leaf_sharding(name, t, mesh).placements,
+                                   run_check=False)
+        tensors[name] = t
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        dcp.save(tensors, checkpoint_id=path, no_dist=not dist.is_initialized())
+    if is_main_process():
+        with open(os.path.join(path, "values.json"), "w") as f:
+            json.dump({"order": [n for n, _ in named_leaves(params)], "values": values}, f)
+
+
+def _load_dcp_tree(path: str) -> Any:
+    """The tree :func:`_save_dcp_tree` wrote, whole, as numpy leaves
+    (Python values as they were), read by this process alone."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    with open(os.path.join(path, "values.json")) as f:
+        saved = json.load(f)
+    stored = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    if not all(isinstance(m, TensorStorageMetadata) for m in stored.values()):
+        raise ValueError(f"{path} holds non-tensor entries, which this reader does not unpickle")
+    tensors = {k: torch.empty(m.size, dtype=m.properties.dtype) for k, m in stored.items()}
+    with warnings.catch_warnings():  # that no_dist reads in one process, which it says anyway
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        dcp.load(tensors, checkpoint_id=path, no_dist=True)
+    return unflatten_pytree({name: saved["values"][name] if name in saved["values"]
+                             else tensors[name].numpy() for name in saved["order"]})
 
 
 def load_checkpoint(
     ckpt_dir: str, ign_weights: str | None = None
 ) -> dict[str, Any]:
-    """→ {"params" (a tree of CPU tensors), "meta", "tokenizer"?,
-    "opt_state_flat"?}. ``ign_weights`` is a regex of parameter paths to
-    drop (warm-start filter)."""
+    """→ {"params" (a tree of CPU tensors, in the one-process layout),
+    "meta", "tokenizer"?, "opt_state_flat"?}, the parameters from
+    ``params.npz``, else from ``dcp/``. ``ign_weights`` is a regex of
+    parameter paths to drop (warm-start filter)."""
     out: dict[str, Any] = {}
     npz_path = os.path.join(ckpt_dir, "params.npz")
-    if not os.path.isfile(npz_path):
-        if os.path.isdir(os.path.join(ckpt_dir, "orbax")):
-            raise NotImplementedError(
-                f"{ckpt_dir} holds an orbax checkpoint of the JAX package, "
-                "which conette_torch does not read; save it with backend='npz'")
-        raise FileNotFoundError(f"no params.npz under {ckpt_dir}")
-    params = load_params_npz(npz_path)
+    dcp_path = os.path.join(ckpt_dir, "dcp")
+    if os.path.isfile(npz_path):
+        params = load_params_npz(npz_path)
+    elif os.path.isdir(dcp_path):
+        params = _load_dcp_tree(dcp_path)
+    elif os.path.isdir(os.path.join(ckpt_dir, "orbax")):
+        raise NotImplementedError(
+            f"{ckpt_dir} holds an orbax checkpoint of the JAX package, "
+            "which conette_torch does not read; save it with backend='npz'")
+    else:
+        raise FileNotFoundError(f"no params.npz or dcp/ under {ckpt_dir}")
     if ign_weights:
         pat = re.compile(ign_weights)
         flat = flatten_pytree(params)

@@ -124,7 +124,9 @@ def _make_step(
         if grad_clip_norm:
             clip_by_global_norm_(grads, float(grad_clip_norm), norm)
         for t, g in zip(leaves, grads):
-            t.grad = g
+            # laid out as its parameter, as the fused optimizers take it
+            # (autograd.grad gives a conv weight's gradient permuted)
+            t.grad = g if g.stride() == t.stride() else torch.empty_like(t).copy_(g)
         state.opt_state.step()
         for t in leaves:
             t.grad = None

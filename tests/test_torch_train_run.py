@@ -274,7 +274,7 @@ def test_checkpoint_round_trip_resumes_with_momentum(tmp_path):
     ``load_checkpoint`` → ``restore_opt_state``: the next step from the
     restored state equals the next step of the original bit for bit;
     ``ign_weights`` drops by regex; a payload of another optimizer raises;
-    ``backend="orbax"`` raises."""
+    ``backend="orbax"`` writes ``dcp/``, which loads back bit for bit."""
     _, tcfg = __import__("test_torch_train_model").small_cfg()
     from conette_torch.models.conette import conette_init
 
@@ -309,8 +309,11 @@ def test_checkpoint_round_trip_resumes_with_momentum(tmp_path):
     sgd, _ = optim.get_optimizer(b.params, optim_name="SGD", lr=1e-3, sched_name="none")
     with pytest.raises(ValueError, match="opt_state mismatch"):
         checkpoint.restore_opt_state(loaded["opt_state_flat"], sgd)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        checkpoint.save_checkpoint(str(tmp_path / "o"), a.params, backend="orbax")
+    checkpoint.save_checkpoint(str(tmp_path / "o"), a.params, backend="orbax")
+    assert sorted(os.listdir(tmp_path / "o")) == ["dcp", "meta.json"]
+    from_dcp = checkpoint.load_checkpoint(str(tmp_path / "o"))["params"]
+    for (n, x), (m, y) in zip(named_leaves(a.params), named_leaves(from_dcp)):
+        assert n == m and torch.equal(x, y)
 
 
 def test_checkpoint_manager_keeps_the_top_k_and_links_best(tmp_path):

@@ -271,3 +271,39 @@ def train(rank: int, world: int, hdf_dir: str, log_root: str, bsize: int, extra:
         cache[key] = None
     out = main_train(train_args(hdf_dir, log_root, bsize) + list(extra))
     return out["run_dir"], out["fit"].global_step
+
+
+# -------------------------------------------------------- sharded checkpoint
+def sharded_checkpoint(rank: int, world: int, ckpt_root: str) -> list:
+    """One step of the tiny model with its feed-forward split over ``model``
+    (TP = ``world``), then its tree saved by every process with
+    ``backend="orbax"`` under ``ckpt_root/dcp`` and, gathered, as
+    ``params.npz`` under ``ckpt_root/npz`` by rank 0. Returns this
+    process's (name, block shape) of the split leaves."""
+    import os
+
+    import torch
+
+    from conette_torch.models.conette import conette_init
+    from conette_torch.parallel.mesh import make_mesh, shard_batch
+    from conette_torch.train import optim, step
+    from conette_torch.train.checkpoint import save_checkpoint
+    from conette_torch.weights import named_leaves
+
+    mesh = make_mesh(world, model_parallel=world)
+    cfg = small_config()
+    params = conette_init(torch.Generator().manual_seed(0), cfg)
+    whole_shapes = {n: tuple(t.shape) for n, t in named_leaves(params)}
+    opt, _ = optim.get_optimizer(params, "AdamW", lr=5e-3, weight_decay=2.0, sched_name="none")
+    state = step.init_train_state(params, opt)
+    batch = shard_batch({k: torch.from_numpy(v) for k, v in step_batches(1)[0].items()}, mesh)
+    state, fn = step.make_sharded_train_step(cfg, opt, mesh, state, batch, grad_clip_norm=1.0)
+    state, _ = fn(state, batch, torch.Generator().manual_seed(7))
+    save_checkpoint(os.path.join(ckpt_root, "dcp"), state.params, opt_state=opt, step=1,
+                    meta={"world": world}, backend="orbax", mesh=mesh)
+    whole, opt_flat = step.gather_params(state.params, mesh), step.gather_opt_state(opt, mesh)
+    if rank == 0:
+        save_checkpoint(os.path.join(ckpt_root, "npz"), whole, opt_state=opt_flat, step=1,
+                        meta={"world": world})
+    return [(n, tuple(t.shape)) for n, t in named_leaves(state.params)
+            if tuple(t.shape) != whole_shapes[n]]
