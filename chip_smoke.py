@@ -42,7 +42,26 @@ Phases (any failure exits non-zero):
    and the f32 path on the card against the f32 path on the CPU on two
    short clips; a request of 3 clips must replay the same programs (padded
    to their 8 rows) and capture nothing; stage times, capture times, graph
-   memory and the device's busy share of a replayed request;
+   memory and the device's busy share of a replayed request; then the
+   decode's early exit (``guarded_decode``): the projection and beam 3
+   captured with each step under a CUDA graph conditional node against
+   the same program running every step, with caption lengths forced by
+   ``eos_schedule`` at ``target_lengths`` (the JAX bench's Clotho draws,
+   seed 7) for 1, 3 and 8 clips on f32 and bf16 memory: the same bits
+   (also after a full-length replay and when captured on memory poisoned
+   with 0xFF and 0x00), the steps run equal to the longest scripted length
+   among the real rows (a counting twin), and each replay's device time
+   guarded against fixed-step in 20 turns of one replay each, each replay
+   behind a ~1 ms spin so that its events hold no host launch (each
+   program's minimum and median, and the median of the turns' ratios), at
+   each size and at full length (random weights), printed with the card's
+   name and power limit; the cost of the conditional nodes alone, around
+   bodies of 1 and of 300 kernels (``conditional_node_cost_us``); and the
+   model's own request decode (beam 3 and greedy), corpus batch and
+   sharded caption function, guarded against fixed-step, bit-equal at full
+   length and with every caption ended at ``min_pred_size`` by the
+   classifier's EOS bias;
+   without conditional nodes the run fails;
 4. serve a corpus of 32 WAV and FLAC files (0.8..9.5 s at 44.1 and 32 kHz,
    4 length buckets of 8, so no batch holds silence rows) with
    ``conette_torch.serving``: ``warmup`` for the buckets (which captures
@@ -704,7 +723,7 @@ def build_model(work_dir: str) -> str:
     return ckpt
 
 
-def main_path(dev, work_dir: str):
+def main_path(dev, work_dir: str, smi: str):
     """Phase 3: load and serve a full-width model through its captured
     programs; returns the summary and the loaded bf16 model."""
     import torch
@@ -818,11 +837,13 @@ def main_path(dev, work_dir: str):
     graphs = graph_records(model)
     print(f"  graphs: {graphs}", flush=True)
 
+    guarded = guarded_decode(model, rng, tasks, smi)
+
     total = sum(latencies)
     return dict(
         latency_ms=[x * 1e3 for x in latencies], clips_per_s=3 * BATCH / total, stages_ms=stages,
         small_requests_ms=small_ms, small_request_stages_ms=small_stages,
-        replayed_request=replay, graphs_vs_eager=versus, graphs=graphs,
+        replayed_request=replay, graphs_vs_eager=versus, graphs=graphs, guarded_decode=guarded,
         launches=launches, launches_by_request=per_request, encoder_frame_embs_rel_err=fe_err,
         encoder_clip_abs_err=clip_err, f32_card_vs_cpu_tags_abs_err=tag_err, vocab=vocab,
         cands=[o["cands"] for o in outputs],
@@ -895,6 +916,366 @@ def graphs_vs_eager(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
         print(f"  {name}: graph replay (no host sync) vs eager at f32: tokens equal {equal}, "
               f"lprobs max abs diff {err:.2e}", flush=True)
         assert equal and err <= 1e-5, out[name]
+    return out
+
+
+# phase 3's guarded decode: caption lengths (EOS included) drawn as the JAX
+# bench draws them from the released checkpoint's Clotho lengths (bench.py,
+# not imported: it imports JAX), forced by an EOS bias from step length - 1
+LEN_MEAN, LEN_STD, LEN_MIN, LEN_MAX = 11.6, 2.6, 5, 18
+LEN_SEED = 7
+EOS_FORCE = 1.0e4
+GUARD_CLIPS = (1, 3, 8)
+GUARD_TURNS = 20
+# a spin of ~1 ms at the H100's 1.98 GHz, ahead of each timed replay: longer
+# than the host takes to launch a decode graph
+SPIN_CYCLES = 2_000_000
+# kernels in a body of conditional_node_cost_us: one, and about one decode
+# step's (a 20-step decode replay launches ~6 000)
+NODE_BODY_KERNELS = (1, 300)
+
+
+def target_lengths(n: int) -> np.ndarray:
+    rng = np.random.default_rng(LEN_SEED)
+    return np.clip(np.round(rng.normal(LEN_MEAN, LEN_STD, n)), LEN_MIN, LEN_MAX).astype(np.int32)
+
+
+def eos_schedule(lengths: np.ndarray, max_pred: int) -> np.ndarray:
+    """An EOS bias from step ``length - 1`` on, so that every beam of a clip
+    ends after exactly ``length`` tokens."""
+    steps = np.arange(max_pred)[None, :]
+    return np.where(steps >= lengths[:, None] - 1, EOS_FORCE, 0.0).astype(np.float32)
+
+
+def counted(guard, steps):
+    """``guard``, whose steps also add one to the 0-dim device tensor
+    ``steps`` when they run: the count of the steps that a replay ran."""
+    def run(flag, body):
+        def counted_body():
+            body()
+            steps.add_(1)
+        guard(flag, counted_body)
+    return run
+
+
+def outputs_same_bits(a, b) -> bool:
+    """Whether two programs' outputs (float and integer tensors) have the
+    same bits."""
+    import torch
+
+    return all(same_bits(x, y) if x.is_floating_point() else bool(torch.equal(x, y))
+               for x, y in zip(a, b))
+
+
+def paired_replays_ms(progs: dict, turns: int = GUARD_TURNS) -> dict:
+    """CUDA-event times (ms) of ``turns`` turns, each of which replays every
+    captured program of ``progs`` once (the order reversed every other
+    turn), after one replay each. Each replay is queued behind a spin of
+    ``SPIN_CYCLES`` clock cycles, so that the event times hold the card's
+    work and not the host's launch of the graph, and is waited for before
+    the next: replays queued back to back ran 0.3-0.4 ms slower in second
+    place. A program's speed on the card shifts between stretches of a
+    process (the decode replay sits near 21 or near 25 ms), so the programs
+    are compared turn by turn: each one's times, minimum and median, the
+    median host time of its ``graph.replay()`` call (``launch_ms``), and
+    for each program after the first the medians over the turns of its time
+    over the first's (``ratio_median``) and less the first's
+    (``diff_median_ms``)."""
+    import torch
+
+    names = list(progs)
+    for name in names:
+        progs[name].graph.replay()
+    torch.cuda.synchronize()
+    times: dict = {name: [] for name in names}
+    launch: dict = {name: [] for name in names}
+    for turn in range(turns):
+        for name in names if turn % 2 == 0 else names[::-1]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            t0 = time.perf_counter()
+            progs[name].graph.replay()
+            launch[name].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    out = {"ms": times, "min": {n: min(t) for n, t in times.items()},
+           "median": {n: statistics.median(t) for n, t in times.items()},
+           "launch_ms": {n: statistics.median(t) for n, t in launch.items()}}
+    first = times[names[0]]
+    out["ratio_median"] = {n: statistics.median(b / a for a, b in zip(first, times[n]))
+                           for n in names[1:]}
+    out["diff_median_ms"] = {n: statistics.median(b - a for a, b in zip(first, times[n]))
+                             for n in names[1:]}
+    return out
+
+
+def guarded_decode(model, rng: np.random.Generator, tasks: list[str], smi: str) -> dict:
+    """Phase 3's early exit: the projection and beam search captured with
+    each step under a graph *if* node (``decoding/guard.py``) against the
+    same program with every step run, on one request's encoder outputs.
+
+    (a) Scripted lengths: ``forward_generate`` with ``eos_schedule`` of
+    ``target_lengths(n)`` for 1, 3 and 8 clips of 10 s, beam 3, on f32 and
+    bf16 memory, through ``GraphCache.run_batched`` (8 rows: a short batch
+    is padded by repeating its first row). The guarded program gives the
+    fixed-step program's bits (best and global tokens and lprobs), also
+    when each replay follows one at full length, and when the guarded
+    program is captured on memory poisoned with 0xFF and with 0x00; a
+    counting twin (``counted``) runs exactly the longest scripted length
+    among the real rows. Each program holds ``max_pred_size`` conditional
+    nodes. The device time of a replay, fixed-step and guarded in
+    ``GUARD_TURNS`` turns (``paired_replays_ms``), at each size and at full
+    length (random weights: every beam runs 20 steps).
+
+    (b) The model's own programs: the request decode (``_generate``, beam 3
+    and greedy), the corpus batch (``serving.caption_batch``) and
+    ``make_sharded_caption_fn`` (no mesh), captured into fresh caches as
+    they are (``conditional_step``) and with ``every_step`` in its place
+    (``model_programs_guard``): the
+    same bits at full length and with the classifier's EOS bias raised by
+    ``EOS_FORCE`` (every caption ends at ``min_pred_size``); the request
+    decode's replay time, guarded against fixed, at full length."""
+    import torch
+
+    from conette_torch.decoding.guard import every_step
+    from conette_torch.graphs import REQUEST_BATCH, GraphCache, conditional_step
+    from conette_torch.models.conette import encode_audio, forward_generate
+
+    dev = model.device
+    cfg = model.model_cfg
+    max_p = cfg.max_pred_size
+    wav, lens = model.preprocessor.load_resample(make_clips(rng, BATCH, 10.0, 44100), 44100)
+    audio, a_lens, _ = model.preprocessor.encode(wav, lens)
+    bos = torch.from_numpy(bos_ids(model, tasks)).to(dev)
+    out: dict = {"lengths": {n: target_lengths(n).tolist() for n in GUARD_CLIPS}}
+
+    def scripted_fn(guard, dtype):
+        def fn(audio, a_lens, bos, sched):
+            memory, pad = encode_audio(model.params, cfg, audio, a_lens)
+            res = forward_generate(model.params, cfg, memory.to(dtype), pad, bos,
+                                   forbid_rep_mask=model.forbid_rep_mask,
+                                   eos_bias_schedule=sched, guard=guard)
+            return tuple(res)
+        return fn
+
+    def inputs(n, sched):
+        return (audio[:n], a_lens[:n], bos[:n], torch.from_numpy(sched[:n]).to(dev))
+
+    full = np.zeros((BATCH, max_p), np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        steps = torch.zeros((), dtype=torch.int64, device=dev)
+        caches = {k: GraphCache(1) for k in ("fixed", "guarded", "counted")}
+        fns = {"fixed": scripted_fn(every_step, dtype),
+               "guarded": scripted_fn(conditional_step, dtype),
+               "counted": scripted_fn(counted(conditional_step, steps), dtype)}
+
+        def run(kind, xs, cache=None):
+            return (cache or caches[kind]).run_batched(("scripted", name), fns[kind], xs, dev,
+                                                       n_batched=4)
+
+        rec = {}
+        for n in GUARD_CLIPS + ("full",):
+            lengths = target_lengths(BATCH if n == "full" else n)
+            sched = full if n == "full" else eos_schedule(lengths, max_p)
+            xs = inputs(BATCH if n == "full" else n, sched)
+            want = run("fixed", xs)
+            run("guarded", inputs(BATCH, full))  # a full-length replay first
+            got = run("guarded", xs)
+            run("counted", xs)  # captured on first use: its warm-up counts too
+            steps.zero_()
+            counted_out = run("counted", xs)
+            ran = int(steps)
+            expect = max_p if n == "full" else int(lengths.max())
+            r = {"same_bits": outputs_same_bits(want, got),
+                 "counted_same_bits": outputs_same_bits(want, counted_out),
+                 "steps_run": ran, "steps_expected": expect,
+                 "lengths": [int(x) for x in (got[2] != cfg.pad_id).sum(-1).max(-1).values]}
+            # the device time of a replay on these inputs (both programs
+            # hold them from their last call), in turns
+            r["replay"] = t = paired_replays_ms(
+                {kind: caches[kind].programs[(REQUEST_BATCH, "scripted", name)]
+                 for kind in ("fixed", "guarded")})
+            rec[str(n)] = r
+            print(f"  guarded decode, {name} memory, {n} clips: lengths {r['lengths']}, steps "
+                  f"run {ran} (expected {expect}), same bits {r['same_bits']} (counting twin "
+                  f"{r['counted_same_bits']}); replay in {GUARD_TURNS} turns, min "
+                  f"{t['min']} ms, median {t['median']} ms, guarded / fixed-step median of the "
+                  f"turns {t['ratio_median']['guarded']:.4f} "
+                  f"({t['diff_median_ms']['guarded']:+.4f} ms); host launch {t['launch_ms']} ms",
+                  flush=True)
+            assert r["same_bits"] and r["counted_same_bits"] and ran == expect, r
+        nodes = {k: c.programs[(REQUEST_BATCH, "scripted", name)].conditional_nodes
+                 for k, c in caches.items()}
+        assert nodes == {"fixed": 0, "guarded": max_p, "counted": max_p}, nodes
+        # the guarded program captured on poisoned memory: a tensor that a
+        # skipped body allocated would hold the poison
+        xs = inputs(BATCH, eos_schedule(target_lengths(BATCH), max_p))
+        want = run("fixed", xs)
+        poisoned = []
+        for byte in (0xFF, 0x00):
+            recycle(byte)
+            poisoned.append(outputs_same_bits(want, run("guarded", xs, GraphCache(1))))
+        rec["same_bits_poisoned"] = all(poisoned)
+        print(f"  guarded decode, {name} memory, captured on memory poisoned with 0xFF and "
+              f"0x00: same bits {poisoned}", flush=True)
+        assert rec["same_bits_poisoned"], poisoned
+        out[name] = rec
+
+    out["model_programs"] = guarded_model_programs(model, wav, lens, bos, smi)
+    out["node_cost_us"] = cost = conditional_node_cost_us(dev, max_p)
+    for kernels, c in cost.items():
+        print(f"  {max_p} conditional nodes around {kernels} one-element adds each: "
+              f"{c['per_node_us']:.2f} us a node over the same adds unguarded (median of the "
+              f"turns' differences; min {c['min_us']} us, median {c['median_us']} us, host "
+              f"launch {c['launch_us']} us) on {smi}", flush=True)
+    out["card"] = smi
+    table = {name: {n: {"guarded_min_ms": out[name][n]["replay"]["min"]["guarded"],
+                        "fixed_min_ms": out[name][n]["replay"]["min"]["fixed"],
+                        "guarded_median_ms": out[name][n]["replay"]["median"]["guarded"],
+                        "fixed_median_ms": out[name][n]["replay"]["median"]["fixed"],
+                        "ratio_median": out[name][n]["replay"]["ratio_median"]["guarded"],
+                        "launch_ms": out[name][n]["replay"]["launch_ms"],
+                        "steps": out[name][n]["steps_run"]}
+                    for n in [str(c) for c in GUARD_CLIPS] + ["full"]}
+             for name in ("float32", "bfloat16")}
+    out["replay_ms"] = table
+    print(f"  decode replay in {GUARD_TURNS} turns of fixed-step and guarded (CUDA events, ms), "
+          f"by memory dtype and clips: {json.dumps(table)} on {smi}", flush=True)
+    return out
+
+
+def conditional_node_cost_us(dev, nodes: int) -> dict:
+    """What ``nodes`` *if* nodes cost a replay, for bodies of each count of
+    ``NODE_BODY_KERNELS`` one-element adds: a program of ``nodes`` bodies,
+    each under ``conditional_step`` on a set flag, against the same adds
+    unguarded, in ``GUARD_TURNS`` turns (``paired_replays_ms``)."""
+    import torch
+
+    from conette_torch.decoding.guard import every_step
+    from conette_torch.graphs import GraphCache, conditional_step
+
+    def program(guard, kernels):
+        def fn(x):
+            flag = torch.ones((), dtype=torch.bool, device=x.device)
+            for _ in range(nodes):
+                guard(flag, lambda: [x.add_(1) for _ in range(kernels)])
+            return (x,)
+        return fn
+
+    out = {}
+    for kernels in NODE_BODY_KERNELS:
+        cache = GraphCache(2)
+        x = torch.zeros((), device=dev)
+        for kind, guard in (("unguarded", every_step), ("guarded", conditional_step)):
+            cache.run((kind,), program(guard, kernels), (x,), dev)
+        t = paired_replays_ms({kind: cache.programs[(kind,)] for kind in ("unguarded", "guarded")})
+        out[kernels] = {"min_us": {k: v * 1e3 for k, v in t["min"].items()},
+                        "median_us": {k: v * 1e3 for k, v in t["median"].items()},
+                        "launch_us": {k: v * 1e3 for k, v in t["launch_ms"].items()},
+                        "per_node_us": t["diff_median_ms"]["guarded"] * 1e3 / nodes}
+    return out
+
+
+@contextlib.contextmanager
+def model_programs_guard(guard):
+    """The model's captured searches (``CoNeTTEModel._generate`` and
+    ``serving._caption_batch_eager``) with ``guard`` in the place of the
+    ``conditional_step`` that they call: the check's seam for their
+    fixed-step twins, which are captured into a cache of their own (the
+    cache's keys do not hold the guard)."""
+    from conette_torch import serving
+    from conette_torch.huggingface import model as model_module
+
+    saved = model_module.conditional_step, serving.conditional_step
+    model_module.conditional_step = serving.conditional_step = guard
+    try:
+        yield
+    finally:
+        model_module.conditional_step, serving.conditional_step = saved
+
+
+def guarded_model_programs(model, wav, lens, bos, smi: str) -> dict:
+    """Part (b) of :func:`guarded_decode`: the model's request decode,
+    corpus batch and sharded caption function, guarded against fixed-step."""
+    import torch
+
+    from conette_torch.decoding.guard import every_step
+    from conette_torch.graphs import GraphCache, conditional_step
+    from conette_torch.huggingface.model import MAX_MODEL_GRAPHS
+    from conette_torch.serving import caption_batch, make_sharded_caption_fn
+
+    cfg = model.model_cfg
+    audio, a_lens, _ = model.preprocessor.encode(wav, lens)
+    bos_np = bos.cpu().numpy()
+    eos_bias = model.params["decoder"]["classifier"]["bias"]
+    eos_saved = eos_bias[cfg.eos_id].clone()  # put back bit for bit
+    saved = model.graphs
+    paths = {
+        "request_beam3": lambda: model._generate(audio, a_lens, bos, model.forbid_rep_mask, 3,
+                                                 cfg.min_pred_size, cfg.max_pred_size),
+        "request_greedy": lambda: model._generate(audio, a_lens, bos, model.forbid_rep_mask, 1,
+                                                  cfg.min_pred_size, cfg.max_pred_size),
+        "corpus_batch": lambda: caption_batch(model, wav, lens, bos_np, cfg.beam_size),
+        "sharded_caption": lambda: make_sharded_caption_fn(model, None)(wav, lens, bos_np),
+    }
+
+    def outputs(res):
+        if isinstance(res[0], torch.cuda.Event) or res[0] is None:
+            done, *tensors = res
+            if done is not None:
+                done.synchronize()
+            return [t.clone() for t in tensors]
+        return [t.clone() for t in res]
+
+    caches = {"fixed": GraphCache(MAX_MODEL_GRAPHS), "guarded": GraphCache(MAX_MODEL_GRAPHS)}
+    guards = {"fixed": every_step, "guarded": conditional_step}
+    out = {}
+    try:
+        for length in ("full", "short"):
+            if length == "short":  # every caption ends as soon as min_pred_size allows
+                eos_bias[cfg.eos_id] += EOS_FORCE
+            try:
+                for name, call in paths.items():
+                    got = {}
+                    for kind in ("fixed", "guarded"):
+                        model.graphs = caches[kind]
+                        with model_programs_guard(guards[kind]):
+                            got[kind] = outputs(call())
+                    torch.cuda.synchronize()
+                    lengths = (got["guarded"][0] != cfg.pad_id).sum(-1)
+                    out[f"{name}_{length}"] = r = {
+                        "same_bits": outputs_same_bits(got["fixed"], got["guarded"]),
+                        "longest": int(lengths.max()), "shortest": int(lengths.min())}
+                    print(f"  {name} at {length} length: guarded against fixed-step, same bits "
+                          f"{r['same_bits']}, caption lengths {r['shortest']}..{r['longest']}",
+                          flush=True)
+                    assert r["same_bits"], (name, length)
+            finally:
+                if length == "short":
+                    eos_bias[cfg.eos_id].copy_(eos_saved)
+        nodes = {kind: {str(k): p.conditional_nodes for k, p in c.programs.items()}
+                 for kind, c in caches.items()}
+        out["conditional_nodes"] = nodes
+        decode_keys = [k for k in caches["guarded"].programs if "generate" in k or "corpus" in k]
+        assert len(decode_keys) == 3 and all(
+            caches["guarded"].programs[k].conditional_nodes == cfg.max_pred_size
+            for k in decode_keys), nodes["guarded"]
+        assert all(n == 0 for n in nodes["fixed"].values()), nodes["fixed"]
+        # the request decode at beam 3 and full length (random weights; both
+        # programs hold the request's inputs), in turns
+        key = next(k for k in caches["fixed"].programs if k[1] == "generate" and k[4] == 3)
+        out["request_beam3_full_replay"] = t = paired_replays_ms(
+            {kind: caches[kind].programs[key] for kind in ("fixed", "guarded")})
+        print(f"  request decode replay at beam 3, full length (random weights), in "
+              f"{GUARD_TURNS} turns: min {t['min']} ms, median {t['median']} ms, guarded / "
+              f"fixed-step median of the turns {t['ratio_median']['guarded']:.4f} "
+              f"({t['diff_median_ms']['guarded']:+.4f} ms), host launch {t['launch_ms']} ms "
+              f"on {smi}", flush=True)
+    finally:
+        model.graphs = saved
     return out
 
 
@@ -3030,7 +3411,7 @@ def main() -> int:
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work:
-        summary, model = main_path(dev, work)
+        summary, model = main_path(dev, work, smi)
         print(f"  clips/s over the 3 requests: {summary['clips_per_s']:.2f}", flush=True)
         print(f"phase 4: corpus serving, {CORPUS_FILES} WAV and FLAC files, batch 8", flush=True)
         served = serve_corpus(model, work)

@@ -25,23 +25,34 @@ they sort last, "top-k over live beams only" is the rank test
 ``rank < n_alive``, and the KV cache follows the parents by an index
 gather (``models/decoder.py::reorder_cache``).
 
-The JAX package leaves its loop once no beam is alive, a test that it runs
-on the device. Here all ``max_pred_size`` steps run and nothing is read
-back to the host, so the search can be captured in a CUDA graph. The extra
-steps change nothing in :class:`BeamResult`: with no beam alive, every
-candidate score is ``NEG``, so ``valid`` is false for every rank, nothing
-finishes, and ``fin_preds``, ``fin_avg`` and ``fin_count`` keep their
-values; the state that does move (``preds``, the cache, the tokens) reaches
-no output.
+The loop leaves as the JAX package's ``lax.while_loop`` does, once no beam
+is alive, through the step guard that the caller picks
+(``decoding/guard.py``). The state is held in buffers allocated before the
+first step (JAX's ``_State`` carry: ``preds``, ``mh``, ``sum_lprobs``,
+``alive``, ``fin_preds``, ``fin_avg``, ``fin_count``, ``tok`` and the KV
+cache), and each step writes its new values into them in place and ends by
+writing ``alive.any()`` into a 0-dim bool flag; step ``s`` is handed to
+the guard with the flag that step ``s - 1`` wrote. The default guard runs
+every step and reads nothing back to the host, so the search can be
+captured in a CUDA graph; the captured programs' guard puts each step under
+a graph *if* node, so a replay skips the steps after the last beam retires.
+
+A skipped step is exact: with no beam alive, every candidate score is
+``NEG``, so ``valid`` is false for every rank, nothing finishes, and
+``fin_preds``, ``fin_avg`` and ``fin_count`` keep their values; the state
+that would still move (``preds``, the cache, the tokens) reaches no output.
+So the fixed-step and the early-exit loops give the same bits.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from conette_torch.decoding.greedy import masked_logits, one_hot_bool
+from conette_torch.decoding.guard import Guard, every_step
 from conette_torch.models.decoder import (
     DecoderConfig,
     Params,
@@ -80,6 +91,7 @@ def beam_search(
     max_pred_size: int = 20,
     forbid_rep_mask: torch.Tensor | None = None,
     eos_bias_schedule: torch.Tensor | None = None,
+    guard: Guard = every_step,
 ) -> BeamResult:
     """
     :param memory: (B, T_mem, d_model) projected frame embeddings.
@@ -88,6 +100,8 @@ def beam_search(
     :param eos_bias_schedule: optional (B, max_pred_size) f32 bias added to
         the EOS logit of every beam of clip ``b`` at step ``s``; the
         min-length mask still wins.
+    :param guard: runs each step or skips it, given the flag that the
+        previous step left (``decoding/guard.py``); every step by default.
     """
     b = memory.shape[0]
     k = beam_size
@@ -108,8 +122,13 @@ def beam_search(
     fin_avg = torch.zeros((b, k), device=dev)
     fin_count = torch.zeros((b,), dtype=torch.int64, device=dev)
     rank = torch.arange(k, device=dev)[None, :]
+    # pad and NEG as tensors, for the in-place where(..., out=) below
+    pad_t = torch.full((), pad, dtype=torch.int64, device=dev)
+    neg_t = torch.full((), NEG, device=dev)
 
-    for step in range(max_pred_size):
+    flag = torch.ones((), dtype=torch.bool, device=dev)  # some beam is alive
+
+    def step_body(step: int) -> None:
         raw = decode_step(params, cfg, cache, ctx, tok, step)
         logits = masked_logits(
             raw, step, min_pred_size, eos, mh.reshape(b * k, vocab), forbid_rep_mask
@@ -126,10 +145,11 @@ def beam_search(
         token = flat_idx % vocab
         valid = rank < n_alive[:, None]  # only live beams yield winners
 
-        emitted = torch.where(valid, token, pad)
-        preds = preds.gather(1, parent[:, :, None].expand(-1, -1, max_pred_size))
+        emitted = torch.where(valid, token, pad_t, out=tok.view(b, k))  # the next step's input
+        preds.copy_(preds.gather(1, parent[:, :, None].expand(-1, -1, max_pred_size)))
         preds[:, :, step] = emitted
-        mh = mh.gather(1, parent[:, :, None].expand(-1, -1, vocab)) | one_hot_bool(emitted, vocab)
+        torch.logical_or(mh.gather(1, parent[:, :, None].expand(-1, -1, vocab)),
+                         one_hot_bool(emitted, vocab), out=mh)
 
         finishing = valid & ((token == eos) | (step == max_pred_size - 1))
         # retire finishing winners into slots fin_count .. (in score-rank order)
@@ -138,18 +158,22 @@ def beam_search(
         filled = onehot.any(dim=1)  # (B, s)
         winner = onehot.long().argmax(dim=1)  # (B, s): the winner landing in slot s
         avg = scores / float(step + 1)
-        fin_avg = torch.where(filled, avg.gather(1, winner), fin_avg)
-        fin_preds = torch.where(
+        torch.where(filled, avg.gather(1, winner), fin_avg, out=fin_avg)
+        torch.where(
             filled[:, :, None],
             preds.gather(1, winner[:, :, None].expand(-1, -1, max_pred_size)),
             fin_preds,
+            out=fin_preds,
         )
-        fin_count = fin_count + finishing.sum(dim=1)
+        fin_count.add_(finishing.sum(dim=1))
 
-        alive = valid & ~finishing
-        sum_lprobs = torch.where(alive, scores, NEG)
-        cache = reorder_cache(cache, parent)
-        tok = emitted.reshape(b * k)
+        torch.logical_and(valid, ~finishing, out=alive)
+        torch.where(alive, scores, neg_t, out=sum_lprobs)
+        torch._foreach_copy_(cache, reorder_cache(cache, parent))
+        torch.any(alive, out=flag)
+
+    for step in range(max_pred_size):
+        guard(flag, functools.partial(step_body, step))
 
     best = fin_avg.argmax(dim=1)  # first maximum on ties
     best_preds = fin_preds.gather(1, best[:, None, None].expand(-1, 1, max_pred_size))[:, 0]

@@ -17,8 +17,11 @@ at bf16 (``compute_dtype=torch.bfloat16``), the encoder's log-mel, block
 and seam calls are the custom ops ``conette_torch::logmel``,
 ``conette_torch::convnext_block`` and ``conette_torch::downsample``, one
 node each; at f32 and on the CPU the program holds plain operators only.
-The search runs all ``max_pred_size`` steps (``decoding/beam.py``), so the
-program has no data-dependent control flow.
+The search runs all ``max_pred_size`` steps (its default guard,
+``decoding/guard.py::every_step``), so the program has no data-dependent
+control flow: an exported program carries no CUDA graph node, so it does
+not leave the loop early as the captured programs do. Its tokens equal
+theirs, since a step after the last beam retires changes no output.
 """
 
 from __future__ import annotations

@@ -26,6 +26,20 @@ replays it. A replay reads nothing back to the host.
   the addresses they had at capture; a program sees in-place updates of
   them, and a tensor that is replaced needs a new program
   (:meth:`GraphCache.clear`).
+- A captured decode leaves its loop on the device: the model's searches
+  hand each step to :func:`conditional_step` (a step guard,
+  ``decoding/guard.py``), which captures it into a CUDA graph conditional
+  (*if*) node on the continue flag that the step before it wrote, so a
+  replay runs only the steps up to the one where the last beam retires, as
+  the JAX package's ``while_loop`` does. Each capture runs inside a
+  :class:`ConditionalCapture`, which builds those nodes and gives their
+  bodies' memory a pool that lives as long as the graph. The nodes are
+  built through the CUDA runtime in the port's own C++
+  (``csrc/conditional.cu``; torch 2.11, on the card, has no
+  ``CUDAGraph.begin_capture_to_if_node``): a body is captured from a stream
+  of its own, with the caching allocator pointed at that pool. If the
+  runtime, the driver or torch cannot build the nodes, the capture raises:
+  a captured search never quietly becomes the fixed-step program.
 - On the CPU there is no graph: :meth:`GraphCache.run` calls the function.
 
 A capture that fails raises; nothing falls back to eager execution.
@@ -33,7 +47,11 @@ A capture that fails raises; nothing falls back to eager execution.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import threading
 import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Hashable, Sequence
 
@@ -49,8 +67,133 @@ Inputs = Sequence["np.ndarray | torch.Tensor"]
 REQUEST_BATCH = 8
 
 
+# conditional nodes need CUDA 12.4 (the runtime, the driver and torch's build)
+MIN_CUDA = 12040
+_current = threading.local()
+
+
 def _as_tensor(x: Any) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def conditional_step(flag: torch.Tensor, body: Callable[[], None]) -> None:
+    """The step guard of the captured searches (``decoding/guard.py``):
+    while a CUDA stream captures inside a :class:`ConditionalCapture`,
+    capture ``body`` into an *if* node on ``flag``; otherwise run it."""
+    if flag.device.type != "cuda":
+        body()
+        return
+    if not torch.cuda.is_current_stream_capturing():
+        # eager, as in a capture's warm-up: load what the capture will need
+        require_conditional_nodes()
+        _body_stream(flag.device.index)
+        body()
+        return
+    capture = getattr(_current, "capture", None)
+    if capture is None:
+        raise RuntimeError(
+            "a guarded decode step is being captured outside a ConditionalCapture: capture "
+            "the search through graphs.GraphCache, or pass guard=every_step")
+    capture.if_node(flag, body)
+
+
+def _cuda_number(version: str | None) -> int:
+    major, minor = (version or "0.0").split(".")[:2]
+    return int(major) * 1000 + int(minor) * 10
+
+
+def _call(name: str, *pointers) -> None:
+    """Call the kernel library's C function ``name`` on pointer arguments;
+    raise on the ``cudaError_t`` it returns."""
+    from conette_torch.kernels import _build
+
+    fn = getattr(_build.library(), name)
+    fn.argtypes = [ctypes.c_void_p] * len(pointers)
+    fn.restype = ctypes.c_int
+    _build.check(fn(*pointers), name)
+
+
+@functools.cache
+def require_conditional_nodes() -> None:
+    """Raise, naming what is missing, unless torch's CUDA build, the
+    runtime the kernel library was built against and the driver can all
+    build conditional nodes (12.4 or later) and torch can point its
+    allocator at a pool for one stream."""
+    runtime, driver = ctypes.c_int(), ctypes.c_int()
+    _call("conette_conditional_versions", ctypes.byref(runtime), ctypes.byref(driver))
+    missing = [f"{what} is CUDA {v // 1000}.{v % 1000 // 10}"
+               for what, v in (("torch's build", _cuda_number(torch.version.cuda)),
+                               ("the kernel library's runtime", runtime.value),
+                               ("the driver", driver.value)) if v < MIN_CUDA]
+    if not hasattr(torch._C, "_cuda_beginAllocateCurrentStreamToPool"):
+        missing.append("torch lacks torch._C._cuda_beginAllocateCurrentStreamToPool")
+    if missing:
+        raise RuntimeError("CUDA graph conditional nodes need CUDA 12.4 or later: "
+                           + "; ".join(missing))
+
+
+@functools.cache
+def _body_stream(index: int) -> torch.cuda.ExternalStream:
+    """The stream that captures the bodies on device ``index``: one of the
+    library's own for the life of the process."""
+    handle = ctypes.c_void_p()
+    with torch.cuda.device(index):
+        _call("conette_stream_create", ctypes.byref(handle))
+    return torch.cuda.ExternalStream(handle.value, device=torch.device("cuda", index))
+
+
+class ConditionalCapture:
+    """The *if* nodes of one captured graph. Entered around the capture of
+    ``graph``; the memory that its bodies allocate comes from a pool of its
+    own, which is released when ``graph`` is collected."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, device: torch.device) -> None:
+        self.graph_ref = weakref.ref(graph)
+        device = torch.device(device)
+        # "cuda" is the current device (a rank's own under torch.distributed)
+        self.index = torch.cuda.current_device() if device.index is None else device.index
+        self.pool = torch.cuda.graph_pool_handle()
+        self.held = False
+        self.nodes = 0
+
+    def __enter__(self) -> "ConditionalCapture":
+        if getattr(_current, "capture", None) is not None:
+            raise RuntimeError("ConditionalCapture entered inside another")
+        _current.capture = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _current.capture = None
+
+    def if_node(self, flag: torch.Tensor, body: Callable[[], None]) -> None:
+        """Capture ``body()`` into an *if* node on the bool ``flag``."""
+        if flag.dtype != torch.bool or flag.numel() != 1:
+            raise ValueError(f"a step's flag is one bool, got {flag.dtype} {tuple(flag.shape)}")
+        require_conditional_nodes()
+        parent = torch.cuda.current_stream(self.index)
+        child = _body_stream(self.index)
+        _call("conette_graph_if_begin", parent.cuda_stream, child.cuda_stream, flag.data_ptr())
+        try:
+            with torch.cuda.stream(child):
+                torch._C._cuda_beginAllocateCurrentStreamToPool(self.index, self.pool)
+                try:
+                    body()
+                finally:
+                    torch._C._cuda_endAllocateToPool(self.index, self.pool)
+                    self._hold_or_release()
+        finally:
+            _call("conette_graph_if_end", child.cuda_stream)
+        self.nodes += 1
+
+    def _hold_or_release(self) -> None:
+        """Each begin holds the pool once: the first hold lasts as long as
+        the graph, every later one is given back at once."""
+        graph = self.graph_ref()
+        if self.held or graph is None:
+            torch._C._cuda_releasePool(self.index, self.pool)
+            return
+        self.held = True
+        weakref.finalize(graph, torch._C._cuda_releasePool, self.index, self.pool).atexit = False
 
 
 class CapturedProgram:
@@ -75,8 +218,9 @@ class CapturedProgram:
             torch.cuda.empty_cache()  # as the capture does: what stays reserved is in use
             reserved = torch.cuda.memory_reserved(device)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph), ConditionalCapture(self.graph, device) as cond:
                 self.outputs = fn(*self.static_inputs)
+        self.conditional_nodes = cond.nodes
         # the graph's private pool, and the static inputs beside it (their
         # pinned staging buffers are as large again, in host memory)
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved

@@ -31,8 +31,9 @@ with the beam or greedy search, one graph for each (memory length, dtype,
 beam, min, max, forbid mask present) (:meth:`CoNeTTEModel._generate`, as
 ``_generate_fn``). Both run at ``graphs.REQUEST_BATCH`` rows: a request of fewer
 clips is padded to them, a larger one runs in chunks of them. A replay
-reads nothing back to the host. The model keeps at most
-``MAX_MODEL_GRAPHS`` programs of its own (the preprocessor
+reads nothing back to the host, and the search's replay stops on the card
+once no beam is alive (``graphs.py::conditional_step``). The model
+keeps at most ``MAX_MODEL_GRAPHS`` programs of its own (the preprocessor
 ``MAX_ENCODER_GRAPHS`` encoder graphs) and drops the least recently used.
 """
 
@@ -47,7 +48,7 @@ from typing import Any, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from conette_torch.graphs import GraphCache
+from conette_torch.graphs import GraphCache, conditional_step
 from conette_torch.huggingface.audioset import load_audioset_names, probs_to_names
 from conette_torch.huggingface.config import CoNeTTEConfig
 from conette_torch.huggingface.convert import convert_torch_checkpoint, load_params_npz
@@ -293,6 +294,7 @@ class CoNeTTEModel:
             g = forward_greedy(
                 self.params, self.model_cfg, memory, pad_mask, bos_ids,
                 min_pred_size=min_p, max_pred_size=max_p, forbid_rep_mask=forbid,
+                guard=conditional_step,
             )
             lp = torch.log_softmax(g.logits.transpose(1, 2), dim=-1)
             sel = lp.gather(-1, g.preds[..., None])[..., 0]
@@ -302,7 +304,7 @@ class CoNeTTEModel:
         res = forward_generate(
             self.params, self.model_cfg, memory, pad_mask, bos_ids,
             beam_size=beam, min_pred_size=min_p, max_pred_size=max_p,
-            forbid_rep_mask=forbid,
+            forbid_rep_mask=forbid, guard=conditional_step,
         )
         return res.best_preds, res.best_avg_lprobs, res.global_preds, res.global_avg_lprobs
 

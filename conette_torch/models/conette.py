@@ -18,6 +18,7 @@ import torch
 
 from conette_torch.decoding.beam import BeamResult, beam_search
 from conette_torch.decoding.greedy import GreedyResult, greedy_search
+from conette_torch.decoding.guard import Guard, every_step
 from conette_torch.models.decoder import (
     DecoderConfig,
     FeedForwardSplit,
@@ -233,6 +234,7 @@ def forward_generate(
     max_pred_size: int | None = None,
     forbid_rep_mask: torch.Tensor | None = None,
     eos_bias_schedule: torch.Tensor | None = None,
+    guard: Guard = every_step,
 ) -> BeamResult:
     return beam_search(
         params["decoder"],
@@ -245,6 +247,7 @@ def forward_generate(
         max_pred_size=max_pred_size if max_pred_size is not None else cfg.max_pred_size,
         forbid_rep_mask=forbid_rep_mask,
         eos_bias_schedule=eos_bias_schedule,
+        guard=guard,
     )
 
 
@@ -258,6 +261,7 @@ def forward_greedy(
     min_pred_size: int | None = None,
     max_pred_size: int | None = None,
     forbid_rep_mask: torch.Tensor | None = None,
+    guard: Guard = every_step,
 ) -> GreedyResult:
     return greedy_search(
         params["decoder"],
@@ -268,4 +272,5 @@ def forward_greedy(
         min_pred_size=min_pred_size if min_pred_size is not None else cfg.min_pred_size,
         max_pred_size=max_pred_size if max_pred_size is not None else cfg.max_pred_size,
         forbid_rep_mask=forbid_rep_mask,
+        guard=guard,
     )

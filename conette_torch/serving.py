@@ -41,6 +41,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from conette_torch.graphs import conditional_step
 from conette_torch.huggingface.model import CoNeTTEModel
 from conette_torch.huggingface.preprocessor import bucket_length
 from conette_torch.models.conette import encode_audio, forward_generate, tasks_to_bos_ids
@@ -241,7 +242,7 @@ def _caption_batch_eager(model: CoNeTTEModel, wav: torch.Tensor, lens: torch.Ten
     )
     res = forward_generate(
         model.params, cfg, memory.to(torch.bfloat16), pad_mask, bos_ids,
-        beam_size=beam, forbid_rep_mask=forbid,
+        beam_size=beam, forbid_rep_mask=forbid, guard=conditional_step,
     )
     return res.best_preds.to(torch.int32), res.best_avg_lprobs.float()
 

@@ -8,8 +8,10 @@ with ``AllMetrics`` and export the CSV/DCASE files.
 
 Decoding runs eagerly on the parameters' device (``encode_audio`` and
 ``forward_generate`` / ``forward_greedy``, which read nothing back to the
-host); the captured programs of ``graphs.py`` serve fixed 8-row requests
-of a model whose weights do not change, and are not used here.
+host) and run every step of the search; the captured programs of
+``graphs.py``, which leave the search once no beam is alive, serve fixed
+8-row requests of a model whose weights do not change, and are not used
+here.
 """
 
 from __future__ import annotations

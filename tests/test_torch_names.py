@@ -43,9 +43,19 @@ RENAMES = {"key": "gen", "rng": "gen"}
 # port's takes, why)
 PARAMS_APART = {
     ("decoding/beam.py", "beam_search"): (
-        {"kv_reorder", "l_chunks"}, set(), "TPU formulations of the beam reorder (Copy rule)"),
+        {"kv_reorder", "l_chunks"}, {"guard"},
+        "TPU formulations of the beam reorder (Copy rule); the step guard that leaves the "
+        "unrolled loop where JAX's while_loop tests its condition (decoding/guard.py)"),
     ("models/conette.py", "forward_generate"): (
-        {"kv_reorder", "l_chunks"}, set(), "TPU formulations of the beam reorder (Copy rule)"),
+        {"kv_reorder", "l_chunks"}, {"guard"},
+        "TPU formulations of the beam reorder (Copy rule); the step guard that leaves the "
+        "unrolled loop where JAX's while_loop tests its condition (decoding/guard.py)"),
+    ("decoding/greedy.py", "greedy_search"): (
+        set(), {"guard"},
+        "the step guard that leaves the unrolled loop where JAX's while_loop tests its condition"),
+    ("models/conette.py", "forward_greedy"): (
+        set(), {"guard"},
+        "the step guard that leaves the unrolled loop where JAX's while_loop tests its condition"),
     ("models/decoder.py", "decode_step"): (
         {"ancestry", "ancestry_impl"}, set(), "the ancestry cache layout, a TPU formulation"),
     ("models/decoder.py", "reorder_cache"): (
