@@ -851,13 +851,20 @@ def main_path(dev, work_dir: str, smi: str):
 
 
 def graph_records(model) -> dict:
-    """Each captured program's key, capture time and device memory (its
-    private pool and static inputs)."""
-    out = {}
+    """Each captured program's key, capture time (its ``capture`` span,
+    ``utils/profiling.py``) and device memory (its private pool and static
+    inputs)."""
+    from conette_torch.utils import profiling
+
+    held = {}
     for owner, cache in (("encoder", model.preprocessor.graphs), ("model", model.graphs)):
-        mem = cache.memory_bytes()
-        for key, seconds in cache.capture_s.items():
-            out[f"{owner}:{key}"] = {"capture_s": seconds, "memory_mb": mem.get(key, 0) / 1e6}
+        for key, nbytes in cache.memory_bytes().items():
+            held[repr(key)] = (owner, nbytes)
+    out = {}
+    for rec in profiling.records():
+        if rec.name == "capture" and rec.attrs["key"] in held:
+            owner, nbytes = held[rec.attrs["key"]]
+            out[f"{owner}:{rec.attrs['key']}"] = {"capture_s": rec.seconds, "memory_mb": nbytes / 1e6}
     return out
 
 
@@ -889,9 +896,10 @@ def graphs_vs_eager(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
         args = (audio, a_lens, bos, forbid, beam, cfg.min_pred_size, cfg.max_pred_size)
         model._generate(*args)  # captured on first use
         torch.cuda.synchronize()
+        steps: list = []  # the steps run, counted on the card: no host sync either
         torch.cuda.set_sync_debug_mode("error")
         try:
-            preds, lprobs, mult_preds, mult_lprobs = model._generate(*args)
+            preds, lprobs, mult_preds, mult_lprobs = model._generate(*args, steps_out=steps)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         with torch.inference_mode():
@@ -912,7 +920,9 @@ def graphs_vs_eager(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
         equal = bool(torch.equal(preds, want[0]) and torch.equal(mult_preds, want[2]))
         err = max(float((lprobs - want[1]).abs().max()), float((mult_lprobs - want[3]).abs().max()))
         out[name] = {"tokens_equal": equal, "lprobs_max_abs_diff": err,
-                     "lengths": (preds != cfg.pad_id).sum(dim=1).tolist()}
+                     "lengths": (preds != cfg.pad_id).sum(dim=1).tolist(),
+                     "decode_steps": int(steps[0][0])}
+        assert 1 <= out[name]["decode_steps"] <= cfg.max_pred_size, out[name]
         print(f"  {name}: graph replay (no host sync) vs eager at f32: tokens equal {equal}, "
               f"lprobs max abs diff {err:.2e}", flush=True)
         assert equal and err <= 1e-5, out[name]

@@ -38,6 +38,7 @@ from conette_torch.data.datasets import (
 )
 from conette_torch.data.hdf import HDFDataset
 from conette_torch.tokenization import AACTokenizer
+from conette_torch.utils.profiling import span
 
 pylog = logging.getLogger(__name__)
 
@@ -441,11 +442,16 @@ class HDFDataModule:
         for b in range(n_full):
             start = b * global_bsize + self.process_rank * self.bsize
             idxs = order[start : start + self.bsize]
-            items = [self._train_item(self._train, int(i), epoch) for i in idxs]
-            batch = collate(items)
-            lens = np.asarray([it["audio_lens"] for it in items], np.int32)
-            batch["audio_lens"] = lens
-            yield self._postprocess(batch)
+            # spans rooted at (epoch, the batch's index), as fit's for it
+            with span("build_batch", root=(epoch, b)):
+                with span("read_items"):
+                    items = [self._train_item(self._train, int(i), epoch) for i in idxs]
+                with span("collate"):
+                    batch = collate(items)
+                    lens = np.asarray([it["audio_lens"] for it in items], np.int32)
+                    batch["audio_lens"] = lens
+                    batch = self._postprocess(batch)
+            yield batch
 
     def eval_batches(
         self, split: str = "val", dl_idx: int = 0

@@ -15,6 +15,8 @@ import queue
 import threading
 from typing import Any, Iterable, Iterator
 
+from conette_torch.utils.profiling import span
+
 _SENTINEL = object()
 
 
@@ -26,8 +28,12 @@ def prefetch_iterator(it: Iterable[Any], depth: int = 2) -> Iterator[Any]:
 
     def worker() -> None:
         try:
-            for item in it:
-                q.put(item)
+            for i, item in enumerate(it):
+                try:
+                    q.put_nowait(item)
+                except queue.Full:  # the consumer is behind: a span while the producer waits
+                    with span("queue_full", item=i):
+                        q.put(item)
         except BaseException as exc:  # propagate to the consumer
             err.append(exc)
         finally:

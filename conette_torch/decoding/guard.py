@@ -15,6 +15,10 @@ callable ``guard(flag, body)`` that runs ``body()`` or not:
   so that a replay runs step ``s`` only while step ``s - 1`` left a beam
   alive, as the ``while_loop`` does.
 
+:func:`counted` wraps a guard so that each step it runs adds one to a
+counter on the device: the steps a search ran, read back with its tokens
+(the ``decode_steps`` of a ``readback`` span, ``utils/profiling.py``).
+
 A skipped step is exact because, once no beam is alive, a step changes no
 output of the search (the argument is in ``decoding/beam.py`` and
 ``decoding/greedy.py``). A body writes its results into buffers allocated
@@ -35,3 +39,19 @@ Guard = Callable[[torch.Tensor, Body], None]
 def every_step(flag: torch.Tensor, body: Body) -> None:
     """Run ``body``, whatever ``flag`` holds, reading nothing back."""
     body()
+
+
+def counted(guard: Guard, steps: torch.Tensor) -> Guard:
+    """``guard`` whose bodies each add one to ``steps`` (an int tensor on the
+    search's device) after the step: the steps run, counted on the device
+    where they run (inside a captured step's *if* node), for the caller to
+    read back with the tokens."""
+
+    def counting(flag: torch.Tensor, body: Body) -> None:
+        def step() -> None:
+            body()
+            steps.add_(1)
+
+        guard(flag, step)
+
+    return counting

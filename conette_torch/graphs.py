@@ -41,6 +41,11 @@ replays it. A replay reads nothing back to the host.
   runtime, the driver or torch cannot build the nodes, the capture raises:
   a captured search never quietly becomes the fixed-step program.
 - On the CPU there is no graph: :meth:`GraphCache.run` calls the function.
+- Spans (``utils/profiling.py``): ``warmup`` around a capture's first,
+  eager call (which also builds kernels and loads libraries), ``capture``
+  around the capture itself (its key and rows), and around a replay
+  ``copy_in`` (the staging buffers and the copies) and ``replay`` (the
+  graph's launch); the counter ``graph_evictions``.
 
 A capture that fails raises; nothing falls back to eager execution.
 """
@@ -50,13 +55,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-import time
 import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Hashable, Sequence
 
 import numpy as np
 import torch
+
+from conette_torch.utils.profiling import count, span
 
 Inputs = Sequence["np.ndarray | torch.Tensor"]
 
@@ -197,28 +203,33 @@ class ConditionalCapture:
 
 
 class CapturedProgram:
-    """``fn`` captured at the shapes and dtypes of ``inputs`` on ``device``."""
+    """``fn`` captured at the shapes and dtypes of ``inputs`` on ``device``;
+    ``key`` names it in its ``capture`` span."""
 
-    def __init__(self, fn: Callable[..., Any], inputs: Inputs, device: torch.device) -> None:
+    def __init__(self, fn: Callable[..., Any], inputs: Inputs, device: torch.device,
+                 key: Hashable | None = None) -> None:
         with torch.inference_mode():
             self.static_inputs = [
                 torch.empty(t.shape, dtype=t.dtype, device=device) for t in map(_as_tensor, inputs)
             ]
-            self.staging = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                            for t in self.static_inputs]
-            self.copied = torch.cuda.Event()
-            self._copy_in(inputs)
-            stream = torch.cuda.current_stream(device)
-            side = torch.cuda.Stream(device)
-            side.wait_stream(stream)
-            with torch.cuda.stream(side):
-                fn(*self.static_inputs)  # warm-up: builds, caches, first use
-            stream.wait_stream(side)
-            torch.cuda.synchronize(device)
+            with span("warmup"):
+                self.staging = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                                for t in self.static_inputs]
+                self.copied = torch.cuda.Event()
+                self._copy_in(inputs)
+                stream = torch.cuda.current_stream(device)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(stream)
+                with torch.cuda.stream(side):
+                    fn(*self.static_inputs)  # warm-up: builds, caches, first use
+                stream.wait_stream(side)
+                torch.cuda.synchronize(device)
             torch.cuda.empty_cache()  # as the capture does: what stays reserved is in use
             reserved = torch.cuda.memory_reserved(device)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph), ConditionalCapture(self.graph, device) as cond:
+            shape = self.static_inputs[0].shape if self.static_inputs else ()  # a scalar, or nothing
+            with span("capture", key=repr(key), rows=shape[0] if shape else 1), \
+                    torch.cuda.graph(self.graph), ConditionalCapture(self.graph, device) as cond:
                 self.outputs = fn(*self.static_inputs)
         self.conditional_nodes = cond.nodes
         # the graph's private pool, and the static inputs beside it (their
@@ -248,11 +259,13 @@ class CapturedProgram:
 
     def __call__(self, *inputs: Any) -> Any:
         with torch.inference_mode():
-            self.staging = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                            for t in self.static_inputs]
-            self.copied = torch.cuda.Event()
-            self._copy_in(inputs)
-            self.graph.replay()
+            with span("copy_in"):
+                self.staging = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                                for t in self.static_inputs]
+                self.copied = torch.cuda.Event()
+                self._copy_in(inputs)
+            with span("replay"):
+                self.graph.replay()
         return self.outputs
 
 
@@ -263,7 +276,6 @@ class GraphCache:
     def __init__(self, max_graphs: int) -> None:
         self.max_graphs = max_graphs
         self.programs: OrderedDict[Hashable, CapturedProgram] = OrderedDict()
-        self.capture_s: dict[Hashable, float] = {}
 
     def run(self, key: Hashable, fn: Callable[..., Any], inputs: Inputs,
             device: torch.device) -> Any:
@@ -275,10 +287,9 @@ class GraphCache:
         if prog is None:
             while len(self.programs) >= self.max_graphs:
                 self.programs.popitem(last=False)
-            t0 = time.perf_counter()
-            prog = self.programs[key] = CapturedProgram(fn, inputs, device)
+                count("graph_evictions")
+            prog = self.programs[key] = CapturedProgram(fn, inputs, device, key)
             torch.cuda.synchronize(device)
-            self.capture_s[key] = time.perf_counter() - t0
         else:
             self.programs.move_to_end(key)
         return prog(*inputs)
@@ -296,7 +307,6 @@ class GraphCache:
 
     def clear(self) -> None:
         self.programs.clear()
-        self.capture_s.clear()
 
     def memory_bytes(self) -> dict[Hashable, int]:
         """Device bytes each program holds: its pool and its static inputs."""

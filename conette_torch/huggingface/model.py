@@ -35,6 +35,13 @@ reads nothing back to the host, and the search's replay stops on the card
 once no beam is alive (``graphs.py::conditional_step``). The model
 keeps at most ``MAX_MODEL_GRAPHS`` programs of its own (the preprocessor
 ``MAX_ENCODER_GRAPHS`` encoder graphs) and drops the least recently used.
+
+A request is one root span ``forward`` (``utils/profiling.py``):
+``load_resample`` and ``encode`` (the preprocessor's), a ``readback`` of
+the clip probabilities, ``_generate``, a ``readback`` of the tokens, which
+brings the decode steps each program ran (counted on the card, in the
+same read; the span's ``decode_steps``, a mean over the rows), and
+``detokenize``.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from typing import Any, Iterable, Optional, Union
 import numpy as np
 import torch
 
+from conette_torch.decoding.guard import counted
 from conette_torch.graphs import GraphCache, conditional_step
 from conette_torch.huggingface.audioset import load_audioset_names, probs_to_names
 from conette_torch.huggingface.config import CoNeTTEConfig
@@ -65,6 +73,7 @@ from conette_torch.models.conette import (
 )
 from conette_torch.models.convnext import convnext_init
 from conette_torch.tokenization import AACTokenizer
+from conette_torch.utils.profiling import current, span
 from conette_torch.weights import save_tree, to_torch
 
 pylog = logging.getLogger(__name__)
@@ -195,6 +204,7 @@ class CoNeTTEModel:
         return self.forward(*args, **kwargs)
 
     @torch.inference_mode()
+    @span("forward")  # a request's root span
     def forward(
         self,
         x: AudioInput,
@@ -214,16 +224,17 @@ class CoNeTTEModel:
 
         if preprocess:
             batch = self.preprocessor(x, sr, x_shapes)
-            clip_probs = batch.pop("clip_probs").cpu().numpy()
-            tags = probs_to_names(clip_probs, threshold, self.audioset_names)
+            with span("readback"):
+                clip_probs = batch.pop("clip_probs").cpu().numpy()
         else:
             batch = {
                 "audio": torch.as_tensor(x, dtype=torch.float32, device=self.device),
                 "audio_shape": torch.as_tensor(np.asarray(x_shapes), device=self.device),
             }
-            clip_probs = tags = None
+            clip_probs = None
 
         bsize = int(batch["audio"].shape[0])
+        current().set(rows=bsize, frames=int(batch["audio"].shape[1]))
         if task is None:
             tasks = [self.default_task] * bsize
         elif isinstance(task, str):
@@ -252,61 +263,78 @@ class CoNeTTEModel:
             forbid = self._mask_tensor(build_forbid_rep_mask(self.tokenizer, forbid_rep_mode))
 
         lens = batch["audio_shape"][:, -1]
+        steps: list[torch.Tensor] = []
         preds, lprobs, mult_preds, mult_lprobs = self._generate(
-            batch["audio"].float(), lens, bos_np, forbid, beam, min_p, max_p,
+            batch["audio"].float(), lens, bos_np, forbid, beam, min_p, max_p, steps_out=steps,
         )
-        preds_np = preds.to(torch.int32).cpu().numpy()
-        mult_np = mult_preds.to(torch.int32).cpu().numpy()
-        out = CoNeTTEOutput(
-            cands=[self._decode_pred(row) for row in preds_np],
-            preds=preds_np,
-            lprobs=lprobs.cpu().numpy(),
-            mult_cands=[[self._decode_pred(r) for r in rows] for rows in mult_np],
-            mult_preds=mult_np,
-            mult_lprobs=mult_lprobs.cpu().numpy(),
-            tasks=tasks,
-        )
-        if clip_probs is not None:
-            out["tags_probs"] = clip_probs
-            out["tags"] = tags
+        with span("readback") as read:
+            # the steps each row's program ran come back in the tokens' read
+            both = torch.cat([preds.to(torch.int32), steps[0][:, None].to(torch.int32)], dim=1).cpu().numpy()
+            preds_np = np.ascontiguousarray(both[:, :-1])
+            mult_np = mult_preds.to(torch.int32).cpu().numpy()
+            lprobs_np, mult_lprobs_np = lprobs.cpu().numpy(), mult_lprobs.cpu().numpy()
+            read.set(decode_steps=float(both[:, -1].mean()))
+        with span("detokenize"):
+            out = CoNeTTEOutput(
+                cands=[self._decode_pred(row) for row in preds_np],
+                preds=preds_np,
+                lprobs=lprobs_np,
+                mult_cands=[[self._decode_pred(r) for r in rows] for rows in mult_np],
+                mult_preds=mult_np,
+                mult_lprobs=mult_lprobs_np,
+                tasks=tasks,
+            )
+            if clip_probs is not None:
+                out["tags_probs"] = clip_probs
+                out["tags"] = probs_to_names(clip_probs, threshold, self.audioset_names)
         return out
 
     @torch.inference_mode()
-    def _generate(self, audio, lens, bos_ids, forbid, beam: int, min_p: int, max_p: int):
+    @span("_generate")
+    def _generate(self, audio, lens, bos_ids, forbid, beam: int, min_p: int, max_p: int,
+                  steps_out: list | None = None):
         """The projection and the beam search (greedy at ``beam <= 1``) of
         (B, T, 768) frame embeddings, their (B,) lengths and (B,) BOS ids
         (a tensor or a numpy array) → (preds, avg lprobs, mult preds, mult
         lprobs). On the card one captured program for each (memory length,
         dtype, beam, min, max, forbid mask present), replayed over chunks of
-        ``REQUEST_BATCH`` rows."""
+        ``REQUEST_BATCH`` rows. ``steps_out``, where given, gets the (B,)
+        device tensor of the decode steps each row's program ran."""
         audio = torch.as_tensor(audio, device=self.device)
         lens = torch.as_tensor(lens, device=self.device).to(torch.int64)
         bos_ids = torch.as_tensor(bos_ids).to(torch.int64)
         key = ("generate", audio.shape[1], audio.dtype, beam, min_p, max_p, forbid is not None)
         fn = functools.partial(self._generate_eager, beam=beam, min_p=min_p, max_p=max_p)
         inputs = (audio, lens, bos_ids) + ((forbid,) if forbid is not None else ())
-        return self.graphs.run_batched(key, fn, inputs, self.device, n_batched=3)
+        *outs, steps = self.graphs.run_batched(key, fn, inputs, self.device, n_batched=3)
+        if steps_out is not None:
+            steps_out.append(steps)
+        return tuple(outs)
 
     def _generate_eager(self, audio, lens, bos_ids, forbid=None, *, beam: int, min_p: int,
                         max_p: int):
+        """:meth:`_generate`'s program: its four outputs and the steps run,
+        (B,) rows of one count."""
         memory, pad_mask = encode_audio(self.params, self.model_cfg, audio, lens)
+        steps = torch.zeros((), dtype=torch.int64, device=memory.device)
+        guard = counted(conditional_step, steps)
         if beam <= 1:
             g = forward_greedy(
                 self.params, self.model_cfg, memory, pad_mask, bos_ids,
-                min_pred_size=min_p, max_pred_size=max_p, forbid_rep_mask=forbid,
-                guard=conditional_step,
+                min_pred_size=min_p, max_pred_size=max_p, forbid_rep_mask=forbid, guard=guard,
             )
             lp = torch.log_softmax(g.logits.transpose(1, 2), dim=-1)
             sel = lp.gather(-1, g.preds[..., None])[..., 0]
             valid = g.preds != self.model_cfg.pad_id
             avg = torch.where(valid, sel, 0.0).sum(dim=1) / valid.sum(dim=1).clamp_min(1)
-            return g.preds, avg, g.preds[:, None, :], avg[:, None]
+            return g.preds, avg, g.preds[:, None, :], avg[:, None], steps.expand(len(audio))
         res = forward_generate(
             self.params, self.model_cfg, memory, pad_mask, bos_ids,
             beam_size=beam, min_pred_size=min_p, max_pred_size=max_p,
-            forbid_rep_mask=forbid, guard=conditional_step,
+            forbid_rep_mask=forbid, guard=guard,
         )
-        return res.best_preds, res.best_avg_lprobs, res.global_preds, res.global_avg_lprobs
+        return (res.best_preds, res.best_avg_lprobs, res.global_preds, res.global_avg_lprobs,
+                steps.expand(len(audio)))
 
     def _decode_pred(self, ids: np.ndarray) -> str:
         toks = []

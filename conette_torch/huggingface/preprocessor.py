@@ -28,6 +28,7 @@ from conette_torch.graphs import GraphCache
 from conette_torch.models.convnext import convnext_apply, convnext_init
 from conette_torch.native import loader as native_loader
 from conette_torch.ops.resample import resample_numpy
+from conette_torch.utils.profiling import span
 from conette_torch.weights import to_torch
 
 TARGET_SR = 32_000
@@ -84,6 +85,7 @@ class CoNeTTEPreprocessor:
     def feat_size(self) -> int:
         return FEAT_SIZE
 
+    @span("load_resample")
     def load_resample(
         self,
         x: AudioInput,
@@ -121,14 +123,16 @@ class CoNeTTEPreprocessor:
             raise ValueError(f"Mismatched audio/sr counts ({len(waves)}/{len(srs)}).")
 
         mono: list[np.ndarray] = []
-        for w, s in zip(waves, srs):
-            if w.ndim != 2:
-                raise ValueError(f"Expected (channels, time) clip, got {w.shape}")
-            if s != TARGET_SR:
-                w = resample_numpy(w, int(s), TARGET_SR)
-            mono.append(w.mean(axis=0).astype(np.float32))
+        with span("resample", clips=len(waves)):
+            for w, s in zip(waves, srs):
+                if w.ndim != 2:
+                    raise ValueError(f"Expected (channels, time) clip, got {w.shape}")
+                if s != TARGET_SR:
+                    w = resample_numpy(w, int(s), TARGET_SR)
+                mono.append(w.mean(axis=0).astype(np.float32))
         return self._pad_stack(mono)
 
+    @span("pad_bucket")
     def _pad_stack(self, mono: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
         """Mono clips → (B, padded length) zero-padded batch and (B,) lengths."""
         lens = np.asarray([len(m) for m in mono], np.int64)
@@ -156,6 +160,7 @@ class CoNeTTEPreprocessor:
             "clip_probs": clip,
         }
 
+    @span("encode")
     def encode(self, wav: np.ndarray, lens: np.ndarray) -> tuple[torch.Tensor, ...]:
         """The encoder on loaded (B, S) waveforms and (B,) lengths: (B, T, 768)
         frame embeddings, (B,) frame counts, (B, 527) clip probabilities. On

@@ -34,6 +34,7 @@ from typing import Sequence
 import numpy as np
 
 from conette_torch.kernels._build import BUILD_DIR
+from conette_torch.utils.profiling import current, span
 
 SOURCE = Path(__file__).resolve().with_name("audio_loader.cpp")
 CXX = "g++"
@@ -185,7 +186,16 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
 
 def load_batch(paths: Sequence[str], target_sr: int, workers: int = 8) -> list[np.ndarray]:
-    """:func:`load_resample_mono` of every path on a pool of threads, in order."""
-    library()  # build once, before the threads need it
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(lambda p: load_resample_mono(p, target_sr), paths))
+    """:func:`load_resample_mono` of every path on a pool of threads, in order.
+    A span ``native_load`` on the calling thread holds a span ``load_file``
+    for each file, on the thread that loads it."""
+    with span("native_load", files=len(paths), workers=workers):
+        library()  # build once, before the threads need it
+        parent = current()
+
+        def load(path: str) -> np.ndarray:
+            with span("load_file", parent=parent):
+                return load_resample_mono(path, target_sr)
+
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(load, paths))

@@ -21,6 +21,11 @@ tokens of a batch are copied to pinned host memory behind its replay, and
 detokenized while the next batch's replay runs, as the JAX package
 drains the previous batch while the next one is dispatched.
 
+A call is one root span ``caption_corpus`` (``utils/profiling.py``):
+``bucket_pass`` with a ``wav_info`` a header, a ``load_resample`` a file,
+``caption_batch`` a batch, and ``drain`` (its ``readback``, with the steps
+the search ran, and ``detokenize``).
+
 Over a device mesh (``parallel/mesh.py``, one process a card) the rows of
 each batch are split over its ``data`` dim, with the parameters whole on
 every process: each process runs its rows through the same captured
@@ -41,6 +46,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from conette_torch.decoding.guard import counted
 from conette_torch.graphs import conditional_step
 from conette_torch.huggingface.model import CoNeTTEModel
 from conette_torch.huggingface.preprocessor import bucket_length
@@ -50,6 +56,7 @@ from conette_torch.native import loader as native_loader
 from conette_torch.ops.resample import resampled_length
 from conette_torch.parallel.distributed import all_gather_rows
 from conette_torch.parallel.mesh import Axis, axis
+from conette_torch.utils.profiling import current, span
 
 pylog = logging.getLogger(__name__)
 
@@ -62,6 +69,7 @@ class CaptionResult:
     task: str
 
 
+@span("caption_corpus")
 def caption_corpus(
     model: CoNeTTEModel,
     paths: Sequence[str],
@@ -82,6 +90,8 @@ def caption_corpus(
     """
     data = _data_axis(mesh, batch_size)
     n = len(paths)
+    call = current()  # the call's root span
+    call.set(files=n, batch=batch_size)
     tasks = [task] * n if isinstance(task, str) else list(task)
     if len(tasks) != n:
         raise ValueError(f"{len(tasks)=} != {len(paths)=}")
@@ -95,16 +105,19 @@ def caption_corpus(
     def resampled_len(path: str) -> int:
         if not native_loader.is_riff(path):
             return int(pre.load_resample(path)[1][0])
-        sr, _, frames = native_loader.wav_info(path)
+        with span("wav_info"):
+            sr, _, frames = native_loader.wav_info(path)
         return frames if sr == pre.target_sr else resampled_length(frames, sr, pre.target_sr)
 
     # each process of ``data`` reads its share of the headers
-    lengths = [resampled_len(p) if i % data.size == data.rank else 0 for i, p in enumerate(paths)]
-    if data.size > 1:
-        lengths = all_gather_rows(torch.tensor(lengths), data.group).reshape(data.size, n).sum(0).tolist()
+    with span("bucket_pass"):
+        lengths = [resampled_len(p) if i % data.size == data.rank else 0 for i, p in enumerate(paths)]
+        if data.size > 1:
+            lengths = all_gather_rows(torch.tensor(lengths), data.group).reshape(data.size, n).sum(0).tolist()
     buckets: dict[int, list[int]] = {}
     for i, length in enumerate(lengths):
         buckets.setdefault(bucket_length(length), []).append(i)
+    call.set(buckets=len(buckets))
     pylog.info(f"{n} clips → {len(buckets)} length buckets "
                f"({sorted(b // pre.target_sr for b in buckets)} s)")
 
@@ -125,16 +138,21 @@ def caption_corpus(
         return ids
 
     results: dict[int, CaptionResult] = {}
-    pending: list[tuple[list[int], Any]] = []
+    pending: list[tuple[list[int], Any, list]] = []
 
-    def drain(item: tuple[list[int], Any]) -> None:
-        chunk, queued = item
-        preds, lprobs = (t.numpy() for t in _gathered(queued, data))
-        for row, i in enumerate(chunk):
-            results[i] = CaptionResult(
-                fname=paths[i], caption=model._decode_pred(preds[row]),
-                lprob=float(lprobs[row]), task=tasks[i],
-            )
+    @span("drain")
+    def drain(item: tuple[list[int], Any, list]) -> None:
+        chunk, queued, steps = item
+        with span("readback") as read:
+            preds, lprobs = (t.numpy() for t in _gathered(queued, data))
+            # the steps the search ran, copied behind the tokens: landed with them
+            read.set(decode_steps=int(steps[0][0]))
+        with span("detokenize"):
+            for row, i in enumerate(chunk):
+                results[i] = CaptionResult(
+                    fname=paths[i], caption=model._decode_pred(preds[row]),
+                    lprob=float(lprobs[row]), task=tasks[i],
+                )
 
     rows = slice(data.rank * (batch_size // data.size), (data.rank + 1) * (batch_size // data.size))
     for blen, idxs in sorted(buckets.items()):
@@ -150,7 +168,8 @@ def caption_corpus(
                     wav[row, :m] = w[0, :m]
                     lens[row] = m
             bos = bos_for(chunk)[rows]
-            pending.append((chunk, caption_batch(model, wav, lens, bos, beam)))
+            steps: list[torch.Tensor] = []
+            pending.append((chunk, caption_batch(model, wav, lens, bos, beam, steps_out=steps), steps))
             # detokenize the previous batch while this one runs on the card
             if len(pending) > 1:
                 drain(pending.pop(0))
@@ -206,12 +225,16 @@ def make_sharded_caption_fn(model: CoNeTTEModel, mesh: Any, beam_size: int | Non
     return fn
 
 
+@span("caption_batch")
 def caption_batch(model: CoNeTTEModel, wav: np.ndarray, lens: np.ndarray, bos_ids: np.ndarray,
-                  beam: int) -> tuple[torch.cuda.Event | None, torch.Tensor, torch.Tensor]:
+                  beam: int, steps_out: list | None = None
+                  ) -> tuple[torch.cuda.Event | None, torch.Tensor, torch.Tensor]:
     """One batch of ``caption_corpus``: (B, S) waveforms, (B,) lengths and
     (B,) BOS ids → (an event that marks the copy to the host, or None on
     the CPU; (B, max_pred_size) int32 best tokens; (B,) f32 lprobs), the two
-    in pinned host memory on the card. The batch is queued, not waited on."""
+    in pinned host memory on the card. The batch is queued, not waited on.
+    ``steps_out``, where given, gets the (1,) host tensor of the decode
+    steps the program ran, copied behind the tokens (landed with them)."""
     dev = model.device
     forbid = model.forbid_rep_mask
     key = ("corpus", *wav.shape, beam, forbid is not None)
@@ -219,13 +242,18 @@ def caption_batch(model: CoNeTTEModel, wav: np.ndarray, lens: np.ndarray, bos_id
     inputs = (wav, np.asarray(lens, np.int64), np.asarray(bos_ids, np.int64))
     inputs += (forbid,) if forbid is not None else ()
     with torch.inference_mode():
-        preds, lprobs = model.graphs.run(key, fn, inputs, dev)
+        preds, lprobs, steps = model.graphs.run(key, fn, inputs, dev)
         if dev.type != "cuda":
+            if steps_out is not None:
+                steps_out.append(steps.clone())
             return None, preds.to(torch.int32), lprobs.float()
         preds_h = torch.empty(preds.shape, dtype=torch.int32, pin_memory=True)
         lprobs_h = torch.empty(lprobs.shape, dtype=torch.float32, pin_memory=True)
         preds_h.copy_(preds, non_blocking=True)
         lprobs_h.copy_(lprobs, non_blocking=True)
+        if steps_out is not None:
+            steps_h = torch.empty(steps.shape, dtype=steps.dtype, pin_memory=True)
+            steps_out.append(steps_h.copy_(steps, non_blocking=True))
         done = torch.cuda.Event()
         done.record()
     return done, preds_h, lprobs_h
@@ -233,18 +261,20 @@ def caption_batch(model: CoNeTTEModel, wav: np.ndarray, lens: np.ndarray, bos_id
 
 def _caption_batch_eager(model: CoNeTTEModel, wav: torch.Tensor, lens: torch.Tensor,
                          bos_ids: torch.Tensor, forbid: torch.Tensor | None = None, *,
-                         beam: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 encoder, the projection and beam search over bf16 memory."""
+                         beam: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 encoder, the projection and beam search over bf16 memory:
+    the tokens, the lprobs and the (1,) steps the search ran."""
     cfg = model.model_cfg
     outs = convnext_apply(model.encoder_params, wav, lens, compute_dtype=torch.bfloat16)
     memory, pad_mask = encode_audio(
         model.params, cfg, outs["frame_embs"].transpose(1, 2), outs["frame_embs_lens"]
     )
+    steps = torch.zeros((1,), dtype=torch.int64, device=memory.device)
     res = forward_generate(
         model.params, cfg, memory.to(torch.bfloat16), pad_mask, bos_ids,
-        beam_size=beam, forbid_rep_mask=forbid, guard=conditional_step,
+        beam_size=beam, forbid_rep_mask=forbid, guard=counted(conditional_step, steps),
     )
-    return res.best_preds.to(torch.int32), res.best_avg_lprobs.float()
+    return res.best_preds.to(torch.int32), res.best_avg_lprobs.float(), steps
 
 
 def warmup(

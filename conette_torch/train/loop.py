@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from conette_torch.train.optim import ema_update, set_lr, snapshot, swa_update
+from conette_torch.utils.profiling import span
 
 pylog = logging.getLogger(__name__)
 
@@ -29,26 +30,28 @@ class FitResult(NamedTuple):
     ema_params: Any
     global_step: int
     fit_duration: float
-    # host seconds the loop spent waiting for its next batch, and the
-    # seconds of each epoch's training pass, and of the whole epoch
-    # (validation and checkpoint included)
+    # host seconds the loop spent waiting for its next batch (the sum of
+    # its ``batch_wait`` spans), and the seconds of each epoch's training
+    # pass, and of the whole epoch (validation and checkpoint included)
     batch_wait_s: float = 0.0
     epoch_train_s: tuple = ()
     epoch_s: tuple = ()
 
 
-def pinned_batches(batches: Iterator[dict], pin: bool) -> Iterator[dict]:
+def pinned_batches(batches: Iterator[dict], pin: bool, epoch: int = 0) -> Iterator[dict]:
     """Each batch's arrays as CPU tensors, in pinned memory when ``pin``
     (run in the prefetch thread, so the main thread copies them to the card
-    without a host wait)."""
-    for b in batches:
-        out = {}
-        for k, v in b.items():
-            if isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
-                t = torch.from_numpy(np.ascontiguousarray(v))
-                out[k] = t.pin_memory() if pin else t
-            else:
-                out[k] = v
+    without a host wait); a span ``pin`` a batch, rooted at (``epoch``,
+    the batch's index)."""
+    for i, b in enumerate(batches):
+        with span("pin", root=(epoch, i)):
+            out = {}
+            for k, v in b.items():
+                if isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
+                    t = torch.from_numpy(np.ascontiguousarray(v))
+                    out[k] = t.pin_memory() if pin else t
+                else:
+                    out[k] = v
         yield out
 
 
@@ -104,17 +107,22 @@ def fit(
             break
         set_lr(state.opt_state, base_lr * plateau.factor if plateau is not None else lr_schedule(epoch))
         t_epoch = time.perf_counter()
-        batches = prefetch_iterator(pinned_batches(dm.train_batches(epoch), pin_memory))
+        batches = prefetch_iterator(pinned_batches(dm.train_batches(epoch), pin_memory, epoch))
         i = 0
         while True:
             if (lim_train is not None and i >= lim_train) or 0 <= max_steps <= global_step:
                 break
-            t_wait = time.perf_counter()
-            b = next(batches, None)
-            wait_s += time.perf_counter() - t_wait
+            # a batch's spans share the root (epoch, its index) with the
+            # prefetch thread's that built it
+            with span("batch_wait", root=(epoch, i)) as waited:
+                b = next(batches, None)
+            wait_s += waited.seconds
             if b is None:
                 break
-            state, metrics = train_step(state, to_train_batch(b, global_step), gen)
+            with span("to_train_batch", root=(epoch, i)):
+                batch = to_train_batch(b, global_step)
+            with span("train_step", root=(epoch, i)):
+                state, metrics = train_step(state, batch, gen)
             global_step += 1
             if ema_decay:
                 ema_params = ema_update(ema_params, state.params, float(ema_decay))

@@ -22,7 +22,10 @@ package's overrides and ``conf/`` tree). It trains on ``cuda`` unless given
 ``device=cpu`` (or ``main_train(argv, device="cpu")``), and without a CUDA
 device it raises. TF32 is off on the card, so f32 steps compute in f32.
 ``trainer.profiler.name=jax`` (the conf tree's name) traces the fit loop
-with ``torch.profiler`` into ``{run_dir}/profile/trace.json``.
+with ``torch.profiler`` into ``{run_dir}/profile/trace.json``, the
+program's spans (``utils/profiling.py``) in it as ``user_annotation``
+ranges. At fit's end the spans' and counters' summary is logged as
+``fit_spans``, beside ``fit_batch_wait_s``.
 
 Several cards take one process each: ``torchrun --nproc-per-node N -m
 conette_torch.train.main ...`` (or an ``srun`` of N tasks). The processes
@@ -400,10 +403,13 @@ def main_train(
     if profiler_cfg.get("name") == "jax" and is_main_process():
         from conette_torch.utils.profiling import trace
 
-        tracing = trace(profiler_cfg.get("trace_dir") or os.path.join(run_dir, "profile"))
+        # the fit's spans run on the prefetch thread too
+        tracing = trace(profiler_cfg.get("trace_dir") or os.path.join(run_dir, "profile"), all_threads=True)
 
     from conette_torch.train.loop import fit
+    from conette_torch.utils import profiling
 
+    spans_before = profiling.summary()
     with tracing:
         fit_res = fit(
             state=state,
@@ -435,10 +441,15 @@ def main_train(
     state.params = whole(state.params)
     if swa_params is not None:
         swa_params = whole(swa_params)
+    # the fit's spans and counters (utils/profiling.py): count, total and
+    # self seconds by name
+    fit_spans = profiling.summary(since=spans_before)
+    pylog.info(f"fit spans and counters: {fit_spans}")
     logger.log_metrics({
         "fit_duration_s": fit_res.fit_duration,
         "fit_batch_wait_s": fit_res.batch_wait_s,
         "fit_global_step": fit_res.global_step,
+        "fit_spans": fit_spans,
     })
 
     # ------------------------------------------------------------ 5/6 test

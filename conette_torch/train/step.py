@@ -23,6 +23,7 @@ import torch
 
 from conette_torch.models.conette import ConetteConfig
 from conette_torch.train.objective import training_loss, validation_loss
+from conette_torch.utils.profiling import span
 from conette_torch.weights import named_leaves
 
 Params = Any
@@ -99,14 +100,20 @@ def _make_step(
     grads)`` combines the processes' shares, ``norm`` is the global norm."""
     k = int(accumulate_grad_batches or 1)
 
+    # the host's issue of a step, by part: spans ``loss``, ``grad`` (the
+    # backward pass and the reduction over processes), ``clip`` (the
+    # global norm and the clip), ``optimizer``
     def train_step(state: TrainState, batch: dict, gen: torch.Generator):
         leaves = [t for _, t in named_leaves(state.params)]
-        loss = loss_fn(state.params, batch, gen)
-        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True))
-        loss = loss.detach()
-        if reduce is not None:
-            loss, grads = reduce(loss, grads)
-        gnorm = norm(grads)
+        with span("loss"):
+            loss = loss_fn(state.params, batch, gen)
+        with span("grad"):
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True))
+            loss = loss.detach()
+            if reduce is not None:
+                loss, grads = reduce(loss, grads)
+        with span("clip"):
+            gnorm = norm(grads)
         if k > 1:
             if state.acc_grads is None:
                 state.acc_grads = [torch.zeros_like(g) for g in grads]
@@ -122,14 +129,16 @@ def _make_step(
         else:
             state.step += 1
         if grad_clip_norm:
-            clip_by_global_norm_(grads, float(grad_clip_norm), norm)
-        for t, g in zip(leaves, grads):
-            # laid out as its parameter, as the fused optimizers take it
-            # (autograd.grad gives a conv weight's gradient permuted)
-            t.grad = g if g.stride() == t.stride() else torch.empty_like(t).copy_(g)
-        state.opt_state.step()
-        for t in leaves:
-            t.grad = None
+            with span("clip"):
+                clip_by_global_norm_(grads, float(grad_clip_norm), norm)
+        with span("optimizer"):
+            for t, g in zip(leaves, grads):
+                # laid out as its parameter, as the fused optimizers take it
+                # (autograd.grad gives a conv weight's gradient permuted)
+                t.grad = g if g.stride() == t.stride() else torch.empty_like(t).copy_(g)
+            state.opt_state.step()
+            for t in leaves:
+                t.grad = None
         return state, {"train/loss": loss, "train/grad_norm": gnorm}
 
     return train_step

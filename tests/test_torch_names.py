@@ -32,6 +32,7 @@ LEFT_OUT = {
     ("models/decoder.py", "DecodeCache"), ("models/decoder.py", "init_self_grouped"),
     ("huggingface/config.py", "pylog"), ("train/loop.py", "set_injected_lr"),
     ("utils/misc.py", "enable_compilation_cache"), ("utils/misc.py", "hard_exit"),
+    ("utils/profiling.py", "TimeTracker"),
 }
 
 
@@ -73,6 +74,9 @@ PARAMS_APART = {
         {"fused_block", "fused_interpret", "fused_transpose"}, set(),
         "Pallas switches: the port's route is fixed by device, dtype and mode"),
     ("ops/stft.py", "frame_signal"): ({"impl"}, set(), "an XLA lowering choice (A/B only)"),
+    ("utils/profiling.py", "trace"): (
+        set(), {"all_threads"}, "torch.profiler records the starting thread only unless asked; the fit's "
+        "spans run on the prefetch thread too"),
     ("models/layers.py", "dropout"): (
         set(), {"cols"}, "a column block of the draw, for the feed-forward split over model"),
     ("train/augment.py", "spec_augment"): (

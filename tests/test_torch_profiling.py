@@ -1,7 +1,8 @@
 """The port's ``utils/profiling.py`` on the CPU against conette_tpu's:
 ``flops_profile`` of a product on the same shapes, ``debug_mode`` raising on
 NaN and Inf in the forward and the backward pass, ``trace`` writing its
-Chrome trace, also around ``main_train``'s fit loop, and ``TimeTracker``."""
+Chrome trace, also around ``main_train``'s fit loop, and the module's
+place beside the JAX package's."""
 
 import json
 import os
@@ -71,9 +72,9 @@ def test_main_train_traces_its_fit_loop_through_trace(tmp_path, monkeypatch):
     scopes = []
     trace = profiling.trace
 
-    def spy(log_dir):
+    def spy(log_dir, **kwargs):
         scopes.append(log_dir)
-        return trace(log_dir)
+        return trace(log_dir, **kwargs)
 
     monkeypatch.setattr(profiling, "trace", spy)
     out = main_train([
@@ -88,13 +89,7 @@ def test_main_train_traces_its_fit_loop_through_trace(tmp_path, monkeypatch):
     assert any("mm" in str(e.get("name", "")) for e in events)
 
 
-def test_time_tracker_matches_jax():
-    for mod in (profiling, jax_profiling):
-        tt = mod.TimeTracker()
-        with tt.track("fit"):
-            pass
-        tt.durations["fit"] = 3725.0
-        assert tt.formatted() == {"fit": "01:02:05"}
-        with pytest.raises(KeyError):
-            tt.stop("never_started")
+def test_profiling_is_the_jax_modules_counterpart():
+    """The port's module sits at the JAX package's path (its ``TimeTracker``
+    gave way to the span recorder, ``tests/test_torch_tracing.py``)."""
     assert os.path.basename(profiling.__file__) == os.path.basename(jax_profiling.__file__)

@@ -5,7 +5,9 @@ original's code, and the ``conf/`` tree is byte for byte the original's.
 Code is compared as in ``tests/test_torch_loaders.py``: the AST without
 docstrings, the JAX package's name read as the port's. The differences on
 purpose: ``data/hdf.py`` reads and writes HDF5 through the port's
-``data/hdf5.py`` in place of h5py, so that the port needs no h5py; and
+``data/hdf5.py`` in place of h5py, so that the port needs no h5py;
+``data/datamodule.py`` and ``data/prefetch.py`` open the port's spans
+around a training batch's build and the prefetch thread's wait; and
 ``parity.py`` joins its ``DEFAULT_OUTPUTS_DIR`` from the path's parts."""
 
 import ast
@@ -29,9 +31,47 @@ COPIES = (
 # the reference outputs' directory, which parity.py spells as a literal
 _OUTPUTS = os.path.join(os.sep, "root", "reference", "results", "detailed_outputs")
 
+# the spans of the port's recorder (utils/profiling.py) around a training
+# batch's build, and around the prefetch thread's wait on a full queue
+_BUILD = """            items = [self._train_item(self._train, int(i), epoch) for i in idxs]
+            batch = collate(items)
+            lens = np.asarray([it["audio_lens"] for it in items], np.int32)
+            batch["audio_lens"] = lens
+            yield self._postprocess(batch)
+"""
+_BUILD_SPANNED = """            with span("build_batch", root=(epoch, b)):
+                with span("read_items"):
+                    items = [self._train_item(self._train, int(i), epoch) for i in idxs]
+                with span("collate"):
+                    batch = collate(items)
+                    lens = np.asarray([it["audio_lens"] for it in items], np.int32)
+                    batch["audio_lens"] = lens
+                    batch = self._postprocess(batch)
+            yield batch
+"""
+_PUT = """            for item in it:
+                q.put(item)
+"""
+_PUT_SPANNED = """            for i, item in enumerate(it):
+                try:
+                    q.put_nowait(item)
+                except queue.Full:
+                    with span("queue_full", item=i):
+                        q.put(item)
+"""
+_SPAN_IMPORT = "from conette_torch.utils.profiling import span\n"
+
 # (text in the original, its replacement in the copy, occurrences)
 DIFFERENCES = {
     "data/hdf.py": [("import h5py\n", "from conette_torch.data import hdf5 as h5py\n", 2)],
+    "data/datamodule.py": [
+        ("from conette_tpu.tokenization import AACTokenizer\n",
+         "from conette_tpu.tokenization import AACTokenizer\n" + _SPAN_IMPORT, 1),
+        (_BUILD, _BUILD_SPANNED, 1)],
+    "data/prefetch.py": [
+        ("from typing import Any, Iterable, Iterator\n",
+         "from typing import Any, Iterable, Iterator\n\n" + _SPAN_IMPORT, 1),
+        (_PUT, _PUT_SPANNED, 1)],
     # the same value, joined from its parts; its lazy imports read the port's
     # tokenization/ and metrics/functional/ by the package rename alone
     "parity.py": [(f'DEFAULT_OUTPUTS_DIR = "{_OUTPUTS}"',
