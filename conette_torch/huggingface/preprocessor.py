@@ -8,7 +8,11 @@ to the longest clip) and stacks, then runs the encoder on the model's
 device, returning ``{"audio": (B, T, 768), "audio_shape": (B, 2),
 "clip_probs": (B, 527)}``. File paths are decoded, averaged and resampled
 by the native loader (``conette_torch/native``) on a pool of threads, as
-the JAX package does; arrays are resampled with numpy, then averaged.
+the JAX package does; arrays are averaged, then resampled by the same
+native resample on a pool of threads (the JAX package resamples them with
+numpy, then averages). So the host's ``g++``, which builds the native
+library on first use, is needed for paths and for arrays at any rate but
+32 kHz: without it they raise ``native.loader.CompilerNotFound``.
 
 On a CUDA device the encoder is one CUDA graph for each padded length
 (at the compute dtype, and ``REQUEST_BATCH`` rows: a request is padded to
@@ -27,7 +31,6 @@ import torch
 from conette_torch.graphs import GraphCache
 from conette_torch.models.convnext import convnext_apply, convnext_init
 from conette_torch.native import loader as native_loader
-from conette_torch.ops.resample import resample_numpy
 from conette_torch.utils.profiling import span
 from conette_torch.weights import to_torch
 
@@ -122,14 +125,15 @@ class CoNeTTEPreprocessor:
         if len(waves) != len(srs) or len(waves) == 0:
             raise ValueError(f"Mismatched audio/sr counts ({len(waves)}/{len(srs)}).")
 
-        mono: list[np.ndarray] = []
-        with span("resample", clips=len(waves)):
-            for w, s in zip(waves, srs):
-                if w.ndim != 2:
-                    raise ValueError(f"Expected (channels, time) clip, got {w.shape}")
-                if s != TARGET_SR:
-                    w = resample_numpy(w, int(s), TARGET_SR)
-                mono.append(w.mean(axis=0).astype(np.float32))
+        for w in waves:
+            if w.ndim != 2:
+                raise ValueError(f"Expected (channels, time) clip, got {w.shape}")
+        srs = [int(s) for s in srs]
+        with span("resample", clips=len(waves)) as rs:
+            # the widest band of the call's rates (0 and 0 where none resamples)
+            rs.set(**max((native_loader.taps_attrs(r, TARGET_SR) for r in set(srs)),
+                         key=lambda t: t["band_taps"]))
+            mono = native_loader.resample_batch(waves, srs, TARGET_SR)
         return self._pad_stack(mono)
 
     @span("pad_bucket")

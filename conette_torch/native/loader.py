@@ -2,9 +2,13 @@
 
 Counterpart of ``conette_tpu/native/loader.py``: RIFF/WAVE PCM decode,
 channel mean and the polyphase sinc resample of ``ops/resample.py`` in C++
-(``audio_loader.cpp`` beside this file, a byte-equal copy of
-``native/audio_loader.cpp``). The ctypes calls release the GIL, so
-:func:`load_batch` decodes a corpus on a thread pool.
+(``audio_loader.cpp`` beside this file). The source keeps the C ABI, the
+compiler flags and the filter bank's math of the JAX package's
+``native/audio_loader.cpp``, and runs only each phase's band of non-zero
+taps, from a bank built once for each pair of rates and shared by the
+threads (:func:`resample_taps` counts them). The ctypes calls release the
+GIL, so :func:`load_batch` decodes a corpus, and :func:`resample_batch`
+resamples arrays, on a pool of ``WORKERS`` threads.
 
 On first use the source is compiled with the host's ``g++`` and the flags of
 ``native/Makefile`` into ``build/conette_torch/`` at the repository root.
@@ -15,11 +19,17 @@ carried to another machine, builds anew. The compiler writes to a temporary
 file that is then renamed into place, so processes that build at once never
 load a half-written library. A build that fails raises with the compiler's
 output: nothing falls back to numpy.
+
+The library is built with ``-ffast-math``, whose start-up code sets
+flush-to-zero on the thread that loads it (threads started later inherit
+it); :func:`library` loads it on a thread of its own, so that no caller's
+floats change.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import logging
 import math
@@ -39,6 +49,7 @@ from conette_torch.utils.profiling import current, span
 SOURCE = Path(__file__).resolve().with_name("audio_loader.cpp")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-ffast-math", "-fPIC", "-shared", "-std=c++17")
+WORKERS = 8  # threads of a batch's pool
 
 pylog = logging.getLogger(__name__)
 _lock = threading.Lock()
@@ -82,7 +93,9 @@ def library() -> ctypes.CDLL:
             path = library_path()
             if not path.is_file():
                 build(path)
-            lib = ctypes.CDLL(str(path))
+            # on a thread of its own: loading sets flush-to-zero on the loader
+            with ThreadPoolExecutor(max_workers=1) as one:
+                lib = one.submit(ctypes.CDLL, str(path)).result()
             i32p, i64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
             f32p = ctypes.POINTER(ctypes.c_float)
             lib.conette_wav_info.argtypes = [ctypes.c_char_p, i32p, i32p, i64p]
@@ -93,6 +106,8 @@ def library() -> ctypes.CDLL:
             lib.conette_resample.argtypes = [
                 f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, f32p, ctypes.c_int64, i64p]
             lib.conette_resample.restype = ctypes.c_int
+            lib.conette_resample_taps.argtypes = [ctypes.c_int32, ctypes.c_int32, i32p, i32p]
+            lib.conette_resample_taps.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -144,6 +159,11 @@ def load_resample_mono(path: str, target_sr: int = 0) -> np.ndarray:
     rate); (time,) float32. Containers other than RIFF (FLAC, mp3, Ogg)
     decode through ``utils/audio_io.py`` and resample natively, so every
     file takes the mean before the resample, as the WAV route does."""
+    return _load_resample_mono(path, target_sr)[0]
+
+
+def _load_resample_mono(path: str, target_sr: int) -> tuple[np.ndarray, int]:
+    """:func:`load_resample_mono` and the file's sample rate."""
     if not is_riff(path):
         from conette_torch.utils.audio_io import load_audio
 
@@ -153,8 +173,8 @@ def load_resample_mono(path: str, target_sr: int = 0) -> np.ndarray:
             raise OSError(str(err)) from err
         mono = wav.mean(axis=0).astype(np.float32)
         if target_sr <= 0 or sr == target_sr:
-            return mono
-        return resample(mono, sr, target_sr)
+            return mono, sr
+        return resample(mono, sr, target_sr), sr
     sr, _, frames = wav_info(path)
     tsr = target_sr if target_sr > 0 else sr
     capacity = int(math.ceil(frames * tsr / sr)) + 16
@@ -166,7 +186,7 @@ def load_resample_mono(path: str, target_sr: int = 0) -> np.ndarray:
     )
     if rc != 0:
         _raise("conette_load_resample_mono", path, rc)
-    return out[: out_len.value].copy()
+    return out[: out_len.value], sr
 
 
 def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
@@ -182,20 +202,59 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     )
     if rc != 0:
         raise OSError(f"conette_resample failed ({rc})")
-    return out[: out_len.value].copy()
+    return out[: out_len.value]
 
 
-def load_batch(paths: Sequence[str], target_sr: int, workers: int = 8) -> list[np.ndarray]:
+@functools.cache
+def resample_taps(orig_sr: int, target_sr: int) -> tuple[int, int]:
+    """(band taps, bank taps): the taps that each output sample of a resample
+    from ``orig_sr`` to ``target_sr`` runs, and those of each phase of the
+    dense bank; (0, 0) where the rates are equal (no resample). A constant
+    of the pair, kept after its first query."""
+    band, bank = ctypes.c_int32(), ctypes.c_int32()
+    rc = library().conette_resample_taps(orig_sr, target_sr, band, bank)
+    if rc != 0:
+        raise OSError(f"conette_resample_taps failed ({rc})")
+    return band.value, bank.value
+
+
+def taps_attrs(orig_sr: int, target_sr: int) -> dict[str, int]:
+    """:func:`resample_taps` as span attributes ``band_taps`` and
+    ``bank_taps``, both 0 where no resample runs (``target_sr`` 0 or
+    ``orig_sr``)."""
+    band, bank = resample_taps(orig_sr, target_sr) if 0 < target_sr != orig_sr else (0, 0)
+    return {"band_taps": band, "bank_taps": bank}
+
+
+def load_batch(paths: Sequence[str], target_sr: int, workers: int = WORKERS) -> list[np.ndarray]:
     """:func:`load_resample_mono` of every path on a pool of threads, in order.
     A span ``native_load`` on the calling thread holds a span ``load_file``
-    for each file, on the thread that loads it."""
+    for each file, on the thread that loads it, with the ``band_taps`` and
+    ``bank_taps`` of its resample (:func:`resample_taps`)."""
     with span("native_load", files=len(paths), workers=workers):
         library()  # build once, before the threads need it
         parent = current()
 
         def load(path: str) -> np.ndarray:
-            with span("load_file", parent=parent):
-                return load_resample_mono(path, target_sr)
+            with span("load_file", parent=parent) as s:
+                mono, sr = _load_resample_mono(path, target_sr)
+                s.set(**taps_attrs(sr, target_sr))
+                return mono
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
             return list(pool.map(load, paths))
+
+
+def resample_batch(clips: Sequence[np.ndarray], rates: Sequence[int], target_sr: int) -> list[np.ndarray]:
+    """Each (channels, time) float32 clip's channel mean, resampled from its
+    rate to ``target_sr`` (:func:`resample`), on a pool of threads, in
+    order; (time',) float32 each."""
+    if any(sr != target_sr for sr in rates):
+        library()  # build once, before the threads need it
+
+    def one(clip: np.ndarray, sr: int) -> np.ndarray:
+        mono = clip[0] if len(clip) == 1 else clip.mean(axis=0, dtype=np.float32)
+        return mono if sr == target_sr else resample(mono, sr, target_sr)
+
+    with ThreadPoolExecutor(max_workers=max(1, min(WORKERS, len(clips)))) as pool:
+        return list(pool.map(one, clips, rates))

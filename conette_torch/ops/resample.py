@@ -3,7 +3,8 @@
 Counterpart of ``conette_tpu/ops/resample.py``: the filter bank of
 ``torchaudio.functional.resample`` (Hann-windowed sincs, lowpass_filter_width
 6, rolloff 0.99), applied on the host with one BLAS matmul
-(:func:`resample_numpy`, the preprocessor's route) or to tensors as one
+(:func:`resample_numpy`: the offline frontends' route, and the reference
+that tests hold the native loader's banded resample to) or to tensors as one
 strided ``F.conv1d`` followed by a phase interleave (:func:`resample`).
 """
 
