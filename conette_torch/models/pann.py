@@ -20,7 +20,9 @@ attention head, ``framewise_output`` (B, mel frames, 527). The log-mel
 frontend is the plain one (``ops/frontend.py``), as in the JAX package.
 ``build_pann_model`` and ``apply_pann_model`` take every name of
 ``PANN_ZOO_NAMES``; the other architectures and the decision-level
-max/avg heads live in ``models/pann_zoo.py``.
+max/avg heads live in ``models/pann_zoo.py``. ``pann_frames_masked``
+gives the Cnn family's frame embeddings of a padded batch of clips of
+several lengths, each row what ``pann_apply`` gives the clip alone.
 
 Training mode (``deterministic=False``), as in the JAX package: every
 batch norm normalises with the batch's statistics (``conv_block`` returns
@@ -51,7 +53,8 @@ from conette_torch.models.layers import (
     linear,
     linear_init,
 )
-from conette_torch.ops.frontend import LogMelConfig, logmel_spectrogram
+from conette_torch.ops.frontend import LogMelConfig, logmel_spectrogram, power_to_logmel
+from conette_torch.ops.stft import frame_rows, frames_power
 
 PANN_LOGMEL = LogMelConfig(n_mels=64)
 NUM_AUDIOSET_CLASSES = 527
@@ -247,6 +250,73 @@ def pann_apply(
     else:
         out["clipwise_output"], out["embedding"] = clip_head(params, frames, deterministic, gen)
     return out
+
+
+def _zero_past(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, F) ``x`` with each row's time steps from ``valid`` on set
+    to zero, in place."""
+    keep = torch.arange(x.shape[2], device=x.device) < valid[:, None]
+    return x.mul_(keep[:, None, :, None].to(x.dtype))
+
+
+def pann_frames_masked(
+    params: Params,
+    waveform: torch.Tensor,
+    waveform_lens: torch.Tensor,
+    *,
+    logmel_cfg: LogMelConfig = PANN_LOGMEL,
+) -> dict[str, torch.Tensor]:
+    """Cnn10 / Cnn14 / Cnn14_DecisionLevelAtt frame embeddings of a batch of
+    clips of several lengths, in inference mode: ``{frame_embs (B, C,
+    T'max), frame_embs_lens (B,)}``, each row's first T' frames what
+    :func:`pann_apply` gives that clip alone, zeros after.
+
+    ``waveform`` (B, S) holds each clip's ``waveform_lens`` samples, zeros
+    after; S may be any length at least the longest (a length bucket), as
+    the padding is masked. Each clip defines its frames at its own length:
+    its log-mel frames are centred with reflect padding at its own end, and
+    its convolutions and pools see zeros past it. So bn0's output, each
+    convolution's output after its batch norm and ReLU, and each pool's
+    output are zeroed past the row's valid time steps (``1 + n // hop``
+    mel frames, floored by each pool): the batch norm's shift and the ReLU
+    would make the padding non-zero, and every later 3×3 convolution and
+    pool would carry it into the row's last frames. A row's T' is the
+    floor chain of its mel frames over the pools. Computed NCHW in f32;
+    the attention head's frame smoothing (a pool over frames with its own
+    edge padding) runs row by row over the row's frames."""
+    n_blocks = len(params["blocks"])
+    pools = n_blocks - 1 if n_blocks == 6 else n_blocks  # as pann_apply: no pool after Cnn14's last
+    if not bool((waveform_lens.long() // logmel_cfg.hop_length + 1 >> pools > 0).all()):
+        raise ValueError(f"a clip shorter than {(2 ** pools - 1) * logmel_cfg.hop_length} samples has no "
+                         f"frame left after the encoder's {pools} pools")
+    lens = waveform_lens.to(waveform.device, torch.long)
+    frames = frame_rows(waveform.float(), lens, logmel_cfg.n_fft, logmel_cfg.hop_length)
+    mel = batch_norm_inference(params["bn0"], power_to_logmel(frames_power(frames, logmel_cfg.n_fft),
+                                                              logmel_cfg))
+    valid = 1 + lens // logmel_cfg.hop_length
+    x = _zero_past(mel[:, None], valid)  # (B, 1, T, F)
+    for i, block in enumerate(params["blocks"]):
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+            w = block[conv]["weight"].float().permute(3, 2, 0, 1)  # HWIO → OIHW
+            x = F.conv2d(x, w, block[conv]["bias"].float(), padding=1)
+            scale = block[bn]["weight"].float() * torch.rsqrt(block[bn]["running_var"].float() + 1e-5)
+            shift = block[bn]["bias"].float() - block[bn]["running_mean"].float() * scale
+            x = _zero_past(torch.relu_(x.mul_(scale[:, None, None]).add_(shift[:, None, None])), valid)
+        if i < pools:
+            valid = valid // 2
+            x = _zero_past(F.avg_pool2d(x, 2), valid)
+    embs = x.mean(dim=3)  # (B, C, T'): the frequency mean
+    if "att" in params:
+        from conette_torch.models.pann_zoo import _pool1d_same
+
+        out = torch.zeros((embs.shape[0], params["fc1"]["weight"].shape[1], embs.shape[2]),
+                          device=embs.device)
+        for b, n in enumerate(valid.tolist()):
+            row = embs[b:b + 1, :, :n].transpose(1, 2)  # (1, T', C)
+            smoothed = _pool1d_same(row, "max") + _pool1d_same(row, "avg")
+            out[b, :, :n] = torch.relu(linear(params["fc1"], smoothed))[0].T
+        embs = out
+    return {"frame_embs": embs, "frame_embs_lens": valid.to(torch.int32)}
 
 
 #: the reference zoo (nn/pann_utils/models.py, with the embedding-width and

@@ -19,7 +19,7 @@ from conette_torch.ops.mel import mel_filterbank
 from conette_torch.ops.stft import power_spectrogram
 from conette_torch.weights import device_constant
 
-__all__ = ["LogMelConfig", "logmel_spectrogram", "mel_matrix_tensor", "DEFAULT_LOGMEL"]
+__all__ = ["LogMelConfig", "logmel_spectrogram", "power_to_logmel", "mel_matrix_tensor", "DEFAULT_LOGMEL"]
 
 
 class LogMelConfig:
@@ -89,7 +89,13 @@ def logmel_spectrogram(
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """(B, T) waveform → (B, n_frames, n_mels) float32 log-mel spectrogram."""
-    power = power_spectrogram(x, cfg.n_fft, cfg.hop_length, compute_dtype=compute_dtype)
+    return power_to_logmel(power_spectrogram(x, cfg.n_fft, cfg.hop_length, compute_dtype=compute_dtype),
+                           cfg)
+
+
+def power_to_logmel(power: torch.Tensor, cfg: LogMelConfig = DEFAULT_LOGMEL) -> torch.Tensor:
+    """(B, n_frames, n_freqs) power spectrogram → (B, n_frames, n_mels)
+    float32 log-mel, as :func:`logmel_spectrogram` computes it."""
     fb = mel_matrix_tensor(cfg, power.device)
     mel = torch.matmul(power, fb)
     log_mel = 10.0 * torch.log10(torch.clamp_min(mel, cfg.amin))

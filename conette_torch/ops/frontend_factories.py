@@ -12,7 +12,10 @@ Counterpart of ``conette_tpu/ops/frontend_factories.py`` (reference
 Each factory returns ``(fn, feature width)``, where ``fn(waveform (C, T) or
 (T,), sr)`` resamples to 32 kHz on the host, averages the channels and
 computes the (T', feature width) f32 features on ``device``, which the
-caller names (TF32 is turned off on the card, so they compute in f32).
+caller names (TF32 is turned off on the card, so they compute in f32). The
+Cnn frontends load as ``conette-prepare`` does (the channel mean resampled
+by the native loader) and run ``models/pann.py::pann_frames_masked``, the
+form ``conette-prepare`` batches, on the one clip.
 """
 
 from __future__ import annotations
@@ -43,6 +46,13 @@ FRONTENDS = (
     "resample_mean_gammatonegram",
 )
 
+# the PANN encoder of each Cnn frontend (build_pann_model's names)
+PANN_FRONTENDS = {
+    "resample_mean_cnn10": "Cnn10",
+    "resample_mean_cnn14": "Cnn14",
+    "resample_mean_cnn14_att": "Cnn14_DecisionLevelAtt",
+}
+
 
 def _resample_mean(waveform: np.ndarray, sr: int) -> np.ndarray:
     waveform = np.asarray(waveform, np.float32)
@@ -51,6 +61,15 @@ def _resample_mean(waveform: np.ndarray, sr: int) -> np.ndarray:
     if sr != TARGET_SR:
         waveform = resample_numpy(waveform, sr, TARGET_SR)
     return waveform.mean(axis=0)
+
+
+def _mean_resample_native(waveform: np.ndarray, sr: int) -> np.ndarray:
+    """The channel mean resampled to 32 kHz by the native loader, as
+    ``conette-prepare`` loads a file for the Cnn frontends."""
+    from conette_torch.native import loader
+
+    waveform = np.asarray(waveform, np.float32)
+    return loader.resample_batch([waveform.reshape(-1, waveform.shape[-1])], [int(sr)], TARGET_SR)[0]
 
 
 def get_frontend(
@@ -72,35 +91,39 @@ def get_frontend(
         mono = _resample_mean(waveform, sr)
         return torch.from_numpy(mono[None]).to(dev), torch.tensor([len(mono)], device=dev)
 
-    if name == "resample_mean_convnext" or name.startswith("resample_mean_cnn"):
-        if name == "resample_mean_convnext":
-            from conette_torch.models.convnext import convnext_apply, convnext_init
+    if name == "resample_mean_convnext":
+        from conette_torch.models.convnext import convnext_apply, convnext_init
 
-            params = encoder_params or convnext_init(torch.Generator().manual_seed(seed))
-            apply, feat = convnext_apply, 768
-        else:
-            from conette_torch.models.pann import build_pann_model, pann_apply
-
-            pann_name = {
-                "resample_mean_cnn10": "Cnn10",
-                "resample_mean_cnn14": "Cnn14",
-                "resample_mean_cnn14_att": "Cnn14_DecisionLevelAtt",
-            }[name]
-            params, feat = (
-                (encoder_params, {"Cnn10": 512}.get(pann_name, 2048))
-                if encoder_params is not None
-                else build_pann_model(pann_name, torch.Generator().manual_seed(seed))
-            )
-            apply = pann_apply
-        params = to_torch(params, dev)
+        params = to_torch(encoder_params or convnext_init(torch.Generator().manual_seed(seed)), dev)
 
         @torch.inference_mode()
         def encoder_fn(waveform: np.ndarray, sr: int) -> np.ndarray:
-            outs = apply(params, *mono_on_device(waveform, sr))
+            outs = convnext_apply(params, *mono_on_device(waveform, sr))
             n = int(outs["frame_embs_lens"][0])
             return outs["frame_embs"][0, :, :n].T.float().cpu().numpy()
 
-        return encoder_fn, feat
+        return encoder_fn, 768
+
+    if name in PANN_FRONTENDS:
+        from conette_torch.models.pann import build_pann_model, pann_frames_masked
+
+        pann_name = PANN_FRONTENDS[name]
+        params, feat = (
+            (encoder_params, {"Cnn10": 512}.get(pann_name, 2048))
+            if encoder_params is not None
+            else build_pann_model(pann_name, torch.Generator().manual_seed(seed))
+        )
+        params = to_torch(params, dev)
+
+        @torch.inference_mode()
+        def pann_fn(waveform: np.ndarray, sr: int) -> np.ndarray:
+            mono = _mean_resample_native(waveform, sr)
+            outs = pann_frames_masked(params, torch.from_numpy(mono[None]).to(dev),
+                                      torch.tensor([len(mono)]))
+            n = int(outs["frame_embs_lens"][0])
+            return outs["frame_embs"][0, :, :n].T.float().cpu().numpy()
+
+        return pann_fn, feat
 
     if name == "resample_mean_spectrogram":
 

@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from conette_torch.weights import device_constant
 
 __all__ = [
-    "hann_window", "dft_basis", "basis_tensor", "num_frames", "frame_signal", "power_spectrogram",
+    "hann_window", "dft_basis", "basis_tensor", "num_frames", "frame_signal", "frame_rows",
+    "frames_power", "power_spectrogram",
 ]
 
 
@@ -62,6 +63,34 @@ def frame_signal(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
     return xp.unfold(-1, n_fft, hop_length)
 
 
+def frame_rows(x: torch.Tensor, lens: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """(B, T) zero-padded rows of ``lens`` samples each → (B, 1 + T // hop,
+    n_fft) frames, each row centred with reflect padding at its own end, so
+    that a row's first ``1 + lens // hop`` frames are those that
+    :func:`frame_signal` gives it alone (each ``lens`` > n_fft // 2). Its
+    frames past those read the batch's padding."""
+    pad = n_fft // 2
+    xp = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    # the reflection of each row's own end: padded position n + pad + k holds x[n - 2 - k]
+    k = torch.arange(pad, device=x.device)
+    n = lens.to(x.device, torch.long)[:, None]
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    xp[rows, n + pad + k] = x[rows, n - 2 - k]
+    return xp.unfold(-1, n_fft, hop_length)
+
+
+def frames_power(frames: torch.Tensor, n_fft: int = 1024,
+                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, n_frames, n_fft) frames → (B, n_frames, n_freqs) float32 power
+    spectrogram, as :func:`power_spectrogram` computes it."""
+    n_freqs = n_fft // 2 + 1
+    frames = frames.to(compute_dtype).float()
+    basis = basis_tensor(n_fft, frames.device, compute_dtype)
+    spec = torch.matmul(frames, basis)
+    real, imag = spec[..., :n_freqs], spec[..., n_freqs:]
+    return real * real + imag * imag
+
+
 def power_spectrogram(
     x: torch.Tensor,
     n_fft: int = 1024,
@@ -72,9 +101,4 @@ def power_spectrogram(
 
     Frames and basis are rounded to ``compute_dtype``, then multiplied with
     float32 accumulation (exact products for bf16 operands)."""
-    n_freqs = n_fft // 2 + 1
-    frames = frame_signal(x, n_fft, hop_length).to(compute_dtype).float()
-    basis = basis_tensor(n_fft, x.device, compute_dtype)
-    spec = torch.matmul(frames, basis)
-    real, imag = spec[..., :n_freqs], spec[..., n_freqs:]
-    return real * real + imag * imag
+    return frames_power(frame_signal(x, n_fft, hop_length), n_fft, compute_dtype)

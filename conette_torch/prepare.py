@@ -10,16 +10,30 @@ Counterpart of ``conette_tpu/prepare.py`` (reference ``main_prepare``,
   is installed (the config mode, ``data=clotho ...``);
 - items are filtered by index range, duration and sample rate, with their
   metadata cached on disk (reference ``prepare.py:279-366``);
-- each subset is encoded by the frozen ConvNeXt frontend (resample → channel
-  mean → log-mel → ConvNeXt-Tiny frame embeddings) on the card, in batches
-  through the preprocessor's captured encoder programs, and packed into
-  ``{data}_{subset}_{audio_t}_{text_t}.hdf`` by ``data/hdf.py`` (reference
-  ``prepare.py:369-504``);
+- each subset is encoded by the frozen encoder that ``audio_t`` names on
+  the card and packed into ``{data}_{subset}_{audio_t}_{text_t}.hdf`` by
+  ``data/hdf.py`` (reference ``prepare.py:369-504``):
+  ``resample_mean_convnext`` (resample → channel mean → log-mel →
+  ConvNeXt-Tiny frame embeddings) in batches through the preprocessor's
+  captured encoder programs; ``resample_mean_cnn10`` /
+  ``cnn14`` / ``cnn14_att`` (PANNs' Cnn10, Cnn14, Cnn14_DecisionLevelAtt),
+  each batch of files loaded on the native loader's pool and encoded as one
+  length-masked batch (``models/pann.py::pann_frames_masked``);
 - ``--debug`` re-encodes one random item and compares it with its packed row
   (reference ``prepare.py:485-545``).
 
 Run as ``python -m conette_torch.prepare --audio_dir D --captions_csv C
---out_dir O``; ``--device`` defaults to ``cuda`` and raises without a card.
+--out_dir O [--audio_t resample_mean_cnn14]``; ``--device`` defaults to
+``cuda`` and raises without a card.
+
+Spans (``utils/profiling.py``): a root ``pack_dataset`` (``files``,
+``batch``) around the encoding and the write; on the Cnn route, each
+batch's ``load_ahead`` on a thread of its own (the loader's
+``native_load``, its ``load_file`` spans on the pool), ``pann_encode``
+(``rows``, ``padded_frames``) and ``pack_collect`` (the rows' copy to the
+host), with the counters ``pann_valid_frames`` and ``pann_pad_frames``, the
+mel frames computed inside and past the rows' lengths; ``pack_write``
+around the HDF write.
 """
 
 from __future__ import annotations
@@ -33,6 +47,8 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+
+from conette_torch.utils.profiling import count, current, span
 
 pylog = logging.getLogger(__name__)
 
@@ -88,12 +104,16 @@ class LocalAudioDataset:
     def column_names(self) -> list[str]:
         return ["audio", "captions", "dataset", "subset", "source", "fname"]
 
+    def path(self, idx: int) -> str:
+        """The audio file of item ``idx``."""
+        return os.path.join(self._audio_dir, self._fnames[idx])
+
     def at(self, idx: int, column: str) -> Any:
         fname = self._fnames[idx]
         if column == "audio":
             from conette_torch.utils.audio_io import load_audio
 
-            return load_audio(os.path.join(self._audio_dir, fname))
+            return load_audio(self.path(idx))
         if column == "captions":
             return self._captions[fname]
         if column == "dataset":
@@ -194,6 +214,143 @@ class ConvNeXtFrontend:
         return out
 
 
+class PannFrontend:
+    """The offline ``resample_mean_cnn10`` / ``resample_mean_cnn14`` /
+    ``resample_mean_cnn14_att`` transforms (reference
+    ``src/conette/transforms/get.py:64-237``): a batch's files decoded,
+    averaged over their channels and resampled to 32 kHz on the native
+    loader's pool (in-memory clips resampled on it), zero-padded to a length
+    bucket, and encoded on ``device`` as one length-masked batch
+    (``models/pann.py::pann_frames_masked``): (T', C) f32 frame embeddings
+    a clip, each what the encoder gives the clip alone. A batch of more than
+    ``MAX_ROWS`` files is encoded ``MAX_ROWS`` at a time (the config mode's
+    ``data.bsize`` is 512; 32 rows of 30 s hold 1.57 GB in each of block 1's
+    activations). Without ``encoder_params``, the architecture's random
+    initialisation from ``seed``."""
+
+    MAX_ROWS = 32
+
+    def __init__(self, name: str, encoder_params: Any | None = None, seed: int = 0,
+                 device: torch.device | str | None = None) -> None:
+        from conette_torch.huggingface.model import resolve_device
+        from conette_torch.models.pann import build_pann_model
+        from conette_torch.ops.frontend_factories import PANN_FRONTENDS
+        from conette_torch.weights import to_torch
+
+        self.device = resolve_device(device)
+        if encoder_params is None:
+            encoder_params = build_pann_model(PANN_FRONTENDS[name], torch.Generator().manual_seed(seed))[0]
+        self.params = to_torch(encoder_params, self.device)
+        self._staging: torch.Tensor | None = None
+
+    def load(self, dataset: Any, indexes: list[int]) -> list[np.ndarray]:
+        """The items' mono 32 kHz clips, in order."""
+        from conette_torch.native import loader
+        from conette_torch.ops.frontend_factories import TARGET_SR
+
+        if isinstance(dataset, LocalAudioDataset):
+            return loader.load_batch([dataset.path(i) for i in indexes], TARGET_SR)
+        clips = [dataset.at(i, "audio") for i in indexes]
+        waves = [np.asarray(w, np.float32).reshape(-1, np.shape(w)[-1]) for w, _ in clips]
+        return loader.resample_batch(waves, [int(sr) for _, sr in clips], TARGET_SR)
+
+    def stage(self, monos: list[np.ndarray], samples: int) -> torch.Tensor:
+        """The clips zero-padded to ``samples`` in a host buffer kept from
+        batch to batch (pinned where a card is the device). numpy copies
+        them on this thread: torch's CPU copies would wake its pool of
+        threads, whose spinning slows the loader's threads (a batch's load
+        beside them took 3-4 times as long on the H100 host)."""
+        rows = len(monos)
+        buf = self._staging
+        if buf is None or buf.shape[0] < rows or buf.shape[1] < samples:
+            buf = torch.empty((max(rows, buf.shape[0] if buf is not None else 0), samples),
+                              pin_memory=self.device.type == "cuda")
+            self._staging = buf
+        out = buf[:rows, :samples]
+        rows_np = out.numpy()
+        for row, m in zip(rows_np, monos):
+            row[: len(m)] = m
+            row[len(m):] = 0.0
+        return out
+
+    @torch.inference_mode()
+    def encode(self, monos: list[np.ndarray]) -> list[np.ndarray]:
+        from conette_torch.huggingface.preprocessor import bucket_length
+        from conette_torch.models.pann import PANN_LOGMEL, pann_frames_masked
+
+        lens = [len(m) for m in monos]
+        samples = bucket_length(max(lens))
+        hop = PANN_LOGMEL.hop_length
+        valid = sum(1 + n // hop for n in lens)
+        computed = len(monos) * (1 + samples // hop)
+        host = self.stage(monos, samples)
+        with span("pann_encode", rows=len(monos), padded_frames=computed):
+            wave = host.to(self.device, non_blocking=True)
+            out = pann_frames_masked(self.params, wave, torch.tensor(lens))
+            count("pann_valid_frames", valid)
+            count("pann_pad_frames", computed - valid)
+        with span("pack_collect"):
+            embs = out["frame_embs"].transpose(1, 2).contiguous()
+            host_embs = torch.empty(embs.shape, pin_memory=self.device.type == "cuda")
+            host_embs.copy_(embs)
+            n_out = out["frame_embs_lens"].tolist()
+        return [host_embs.numpy()[j, :n] for j, n in enumerate(n_out)]
+
+    def encode_dataset_batched(
+        self, dataset: Any, indexes: list[int], batch_size: int = 8
+    ) -> list[np.ndarray]:
+        """The items' frame embeddings, in order: each batch of
+        ``batch_size`` files loaded on a thread of its own (a ``load_ahead``
+        span under the caller's, holding the loader's ``native_load``) while
+        the card encodes the batch before it."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        parent = current()
+
+        def load(chunk: list[int]) -> list[np.ndarray]:
+            with span("load_ahead", parent=parent, files=len(chunk)):
+                return self.load(dataset, chunk)
+
+        chunks = [indexes[start : start + batch_size] for start in range(0, len(indexes), batch_size)]
+        out: list[np.ndarray] = []
+        with ThreadPoolExecutor(max_workers=1) as ahead:
+            loading = ahead.submit(load, chunks[0]) if chunks else None
+            for k in range(len(chunks)):
+                monos = loading.result()
+                if k + 1 < len(chunks):
+                    loading = ahead.submit(load, chunks[k + 1])
+                for at in range(0, len(monos), self.MAX_ROWS):
+                    out.extend(self.encode(monos[at : at + self.MAX_ROWS]))
+        return out
+
+
+def make_frontend(audio_t_name: str, encoder_params: Any | None = None,
+                  device: torch.device | str | None = None) -> Any:
+    """The packing frontend that ``audio_t_name`` names:
+    ``resample_mean_convnext`` or a Cnn frontend (``PANN_FRONTENDS``);
+    ``ValueError`` naming them for any other."""
+    from conette_torch.ops.frontend_factories import PANN_FRONTENDS
+
+    if audio_t_name == "resample_mean_convnext":
+        return ConvNeXtFrontend(encoder_params, device=device)
+    if audio_t_name in PANN_FRONTENDS:
+        return PannFrontend(audio_t_name, encoder_params, device=device)
+    raise ValueError(f"Unknown audio_t {audio_t_name!r}. (expected one of "
+                     f"{['resample_mean_convnext', *PANN_FRONTENDS]})")
+
+
+def load_registry_weights(name: str) -> Any:
+    """The numpy tree of a registry checkpoint: a PANN name
+    (``PANN_REGISTRY``) through ``load_registry_pann``, else a ConvNeXt."""
+    from conette_torch.models.registries import PANN_REGISTRY, load_registry_encoder
+
+    if name in PANN_REGISTRY:
+        from conette_torch.huggingface.convert_pann import load_registry_pann
+
+        return load_registry_pann(name)
+    return load_registry_encoder(name)
+
+
 def pack_dataset_to_hdf(
     dataset: LocalAudioDataset,
     out_dir: str,
@@ -207,7 +364,8 @@ def pack_dataset_to_hdf(
     debug_check: bool = False,
     device: torch.device | str | None = None,
 ) -> str:
-    """Encode and pack one subset under the reference's name
+    """Encode and pack one subset with the frontend ``audio_t_name`` names
+    (:func:`make_frontend`) under the reference's name
     ``{data}_{subset}_{audio_t}_{text_t}.hdf``; returns the file's path.
 
     ``debug_check`` re-encodes one random item in the batch it was packed
@@ -216,28 +374,17 @@ def pack_dataset_to_hdf(
     count ``round(n / (padded // frames))`` then depends on the bucket and
     can differ from the packed row's (a 20 s clip: 62 frames alone, 63 in a
     batch padded to 30 s), which fails that check on its shapes."""
-    from conette_torch.data.datasets import DictDataset
-    from conette_torch.data.hdf import HDFDataset, pack_to_hdf
+    from conette_torch.data.hdf import HDFDataset
 
     if indexes is None:
         indexes = list(range(len(dataset)))
-    frontend = ConvNeXtFrontend(encoder_params, device=device)
-    embs = frontend.encode_dataset_batched(dataset, indexes, batch_size)
-
-    columns: dict[str, list] = {
-        "audio": embs,
-        "audio_lens": [int(e.shape[0]) for e in embs],
-        "captions": [dataset.at(i, "captions") for i in indexes],
-        "dataset": [dataset.at(i, "dataset") for i in indexes],
-        "subset": [dataset.at(i, "subset") for i in indexes],
-        "source": [dataset.at(i, "source") for i in indexes],
-        "fname": [dataset.at(i, "fname") for i in indexes],
-    }
-    packed = DictDataset(columns)
-    name = f"{columns['dataset'][0]}_{columns['subset'][0]}_{audio_t_name}_{text_t_name}.hdf"
-    fpath = os.path.join(out_dir, name)
-    os.makedirs(out_dir, exist_ok=True)
-    pack_to_hdf(packed, fpath, overwrite=overwrite)
+    with span("pack_dataset", files=len(indexes), batch=batch_size):
+        frontend = make_frontend(audio_t_name, encoder_params, device)
+        embs = frontend.encode_dataset_batched(dataset, indexes, batch_size)
+        first = indexes[0]
+        name = f"{dataset.at(first, 'dataset')}_{dataset.at(first, 'subset')}_{audio_t_name}_{text_t_name}.hdf"
+        fpath = os.path.join(out_dir, name)
+        write_pack(dataset, indexes, embs, fpath, overwrite)
 
     if debug_check:
         loaded = HDFDataset(fpath)
@@ -252,6 +399,26 @@ def pack_dataset_to_hdf(
             raise RuntimeError(f"HDF sanity check failed for item {j} of {fpath} (max diff {diff})")
         pylog.info(f"HDF sanity check OK for {fpath}")
     return fpath
+
+
+@span("pack_write")
+def write_pack(dataset: Any, indexes: list[int], embs: list[np.ndarray], fpath: str,
+               overwrite: bool = False) -> str:
+    """The items' ``embs`` rows, lengths and metadata columns packed into
+    one HDF file at ``fpath``."""
+    from conette_torch.data.datasets import DictDataset
+    from conette_torch.data.hdf import pack_to_hdf
+
+    columns: dict[str, list] = {
+        "audio": embs,
+        "audio_lens": [int(e.shape[0]) for e in embs],
+        "captions": [dataset.at(i, "captions") for i in indexes],
+        "dataset": [dataset.at(i, "dataset") for i in indexes],
+        "subset": [dataset.at(i, "subset") for i in indexes],
+        "source": [dataset.at(i, "source") for i in indexes],
+        "fname": [dataset.at(i, "fname") for i in indexes],
+    }
+    return pack_to_hdf(DictDataset(columns), fpath, overwrite=overwrite)
 
 
 # ------------------------------------------------- download orchestration
@@ -362,8 +529,10 @@ def main_prepare_config(argv: list[str], device: torch.device | str | None = Non
         python -m conette_torch.prepare data=clotho data.subsets=[dev,val] data.download=true
 
     Composes ``conf/prepare.yaml``, downloads through aac-datasets where
-    asked, and packs each subset with the ConvNeXt frontend on ``device``
-    (else the config's ``device``, else the card)."""
+    asked, and packs each subset with the frontend of ``audio_t._target_``
+    (``audio_t=resample_mean_cnn14``: Cnn14, its ``pretrain_path`` through
+    the PANN registry) on ``device`` (else the config's ``device``, else the
+    card)."""
     from conette_torch.config import load_config
     from conette_torch.huggingface.model import resolve_device
 
@@ -403,10 +572,8 @@ def main_prepare_config(argv: list[str], device: torch.device | str | None = Non
     encoder_params = None
     pretrain = dict(cfg.get("audio_t", {})).get("pretrain_path")
     if pretrain:
-        from conette_torch.models.registries import load_registry_encoder
-
         try:
-            encoder_params = load_registry_encoder(str(pretrain))
+            encoder_params = load_registry_weights(str(pretrain))
         except FileNotFoundError as err:
             pylog.warning(f"Encoder checkpoint not staged ({err}); random init.")
 
@@ -448,8 +615,11 @@ def get_prepare_args(argv: Optional[list[str]] = None):
     parser.add_argument("--subset", type=str, default="dev")
     parser.add_argument("--source", type=str, default=None)
     parser.add_argument("--out_dir", type=str, default="data/HDF")
+    parser.add_argument("--audio_t", type=str, default="resample_mean_convnext",
+                        help="The packing encoder: resample_mean_convnext, resample_mean_cnn10, "
+                             "resample_mean_cnn14 or resample_mean_cnn14_att.")
     parser.add_argument("--encoder", type=str, default=None,
-                        help="Registry name (e.g. cnext_bl_75) or params.npz path.")
+                        help="Registry name (e.g. cnext_bl_75, Cnn14) or params.npz path.")
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--min_duration", type=float, default=0.1)
     parser.add_argument("--max_duration", type=float, default=30.0)
@@ -502,9 +672,7 @@ def main_prepare(argv: Optional[list[str]] = None) -> int:
 
             encoder_params = load_params_npz(args.encoder)
         else:
-            from conette_torch.models.registries import load_registry_encoder
-
-            encoder_params = load_registry_encoder(args.encoder)
+            encoder_params = load_registry_weights(args.encoder)
 
     dataset = scan_local_dataset(
         args.audio_dir, args.captions_csv, args.dataset, args.subset, args.source
@@ -515,6 +683,7 @@ def main_prepare(argv: Optional[list[str]] = None) -> int:
     fpath = pack_dataset_to_hdf(
         dataset,
         args.out_dir,
+        audio_t_name=args.audio_t,
         encoder_params=encoder_params,
         batch_size=args.batch_size,
         indexes=indexes,

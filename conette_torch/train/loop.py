@@ -42,14 +42,20 @@ def pinned_batches(batches: Iterator[dict], pin: bool, epoch: int = 0) -> Iterat
     """Each batch's arrays as CPU tensors, in pinned memory when ``pin``
     (run in the prefetch thread, so the main thread copies them to the card
     without a host wait); a span ``pin`` a batch, rooted at (``epoch``,
-    the batch's index)."""
+    the batch's index). numpy copies an array into its pinned tensor on this
+    thread: torch's copy would wake torch's CPU thread pool, whose spinning
+    slows the main thread's step issue (on the H100 host a 2048-wide batch of
+    512 trained 8–17 % faster with the pool waiting passively)."""
     for i, b in enumerate(batches):
         with span("pin", root=(epoch, i)):
             out = {}
             for k, v in b.items():
                 if isinstance(v, np.ndarray) and v.dtype.kind in "biuf":
                     t = torch.from_numpy(np.ascontiguousarray(v))
-                    out[k] = t.pin_memory() if pin else t
+                    if pin:
+                        t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        t.numpy()[...] = v
+                    out[k] = t
                 else:
                     out[k] = v
         yield out

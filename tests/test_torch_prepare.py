@@ -299,3 +299,202 @@ def test_install_info_reports_the_port_stack(capsys):
     assert "jax" not in rows
     assert info.print_install_info() == 0
     assert "torch.version.cuda" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ Cnn frontends
+PANN_CHANNELS = {"resample_mean_cnn14": (8, 8, 16, 16, 32, 32), "resample_mean_cnn10": (8, 8, 16, 16),
+                 "resample_mean_cnn14_att": (8, 8, 16, 16, 32, 32)}
+
+
+def pann_tree(audio_t: str) -> dict:
+    """A toy Cnn tree of the frontend's structure, batch norms drawn."""
+    from chip_smoke import random_batch_norms
+    from conette_torch.models import pann
+    from conette_torch.weights import to_numpy
+
+    params = pann.pann_init(torch.Generator().manual_seed(5), PANN_CHANNELS[audio_t],
+                            att_head=audio_t.endswith("_att"))
+    return random_batch_norms(to_numpy(params), np.random.default_rng(5))
+
+
+def each_clip_alone(ds, indexes, tree) -> list[np.ndarray]:
+    """Each file's mono 32 kHz signal from the native loader, through
+    ``pann_apply`` alone: (T', C) a clip."""
+    from conette_torch.models import pann
+    from conette_torch.native import loader
+    from conette_torch.weights import to_torch
+
+    out = []
+    for i in indexes:
+        mono = loader.load_resample_mono(ds.path(i), 32_000)
+        embs = pann.pann_apply(to_torch(tree), torch.from_numpy(mono[None]))["frame_embs"]
+        out.append(embs[0].T.numpy())
+    return out
+
+
+def assert_rows_equal(fpath, want, width):
+    got = HDFDataset(fpath)
+    assert len(got) == len(want)
+    for i, w in enumerate(want):
+        a = got.at(i, "audio")
+        assert a.shape == w.shape == (got.at(i, "audio_lens"), width), i
+        np.testing.assert_allclose(a, w, rtol=0, atol=1e-6 * max(1.0, float(np.abs(w).max())))
+
+
+@pytest.mark.parametrize("audio_t", sorted(PANN_CHANNELS))
+def test_a_cnn_pack_holds_each_clip_alone(corpus, tmp_path, audio_t):
+    """The masked batches (2 files a batch, of several lengths, rates and
+    channel counts, FLAC among them) pack the rows the encoder gives each
+    clip alone, in the dataset's order, under the frontend's file name."""
+    audio_dir, csv_path = corpus
+    ds = prepare.scan_local_dataset(audio_dir, csv_path, "clotho", "dev")
+    keep = prepare.filter_dataset(ds)
+    tree = pann_tree(audio_t)
+    fpath = prepare.pack_dataset_to_hdf(ds, str(tmp_path), audio_t_name=audio_t, encoder_params=tree,
+                                        indexes=keep, batch_size=2, debug_check=True, device="cpu")
+    assert os.path.basename(fpath) == f"clotho_dev_{audio_t}_ident.hdf"
+    width = tree["fc1"]["weight"].shape[1] if audio_t.endswith("_att") else PANN_CHANNELS[audio_t][-1]
+    assert_rows_equal(fpath, each_clip_alone(ds, keep, tree), width)
+    packed = HDFDataset(fpath)
+    assert [packed.at(i, "fname") for i in range(len(keep))] == [ds.at(i, "fname") for i in keep]
+    assert [packed.at(i, "captions") for i in range(len(keep))] == [ds.at(i, "captions") for i in keep]
+
+
+def test_get_frontend_gives_the_packed_row(corpus, tmp_path):
+    """``get_frontend``'s Cnn14 on a file's samples and rate equals its row
+    of the pack: one load, resample and forward for both."""
+    from conette_torch.ops.frontend_factories import get_frontend
+
+    audio_dir, csv_path = corpus
+    ds = prepare.scan_local_dataset(audio_dir, csv_path, "clotho", "dev")
+    keep = prepare.filter_dataset(ds)
+    tree = pann_tree("resample_mean_cnn14")
+    fpath = prepare.pack_dataset_to_hdf(ds, str(tmp_path), audio_t_name="resample_mean_cnn14",
+                                        encoder_params=tree, indexes=keep, batch_size=4, device="cpu")
+    fn, width = get_frontend("resample_mean_cnn14", tree, device="cpu")
+    assert width == 2048  # the name's width, whatever the tree
+    packed = HDFDataset(fpath)
+    for row, i in enumerate(keep):
+        want = packed.at(row, "audio")
+        np.testing.assert_allclose(fn(*ds.at(i, "audio")), want, rtol=0,
+                                   atol=1e-6 * max(1.0, float(np.abs(want).max())))
+
+
+def test_the_cnn_pack_records_its_spans_and_counters(corpus, tmp_path):
+    from conette_torch.utils import profiling
+
+    audio_dir, csv_path = corpus
+    ds = prepare.scan_local_dataset(audio_dir, csv_path, "clotho", "dev")
+    keep = prepare.filter_dataset(ds)
+    profiling.clear()
+    prepare.pack_dataset_to_hdf(ds, str(tmp_path), audio_t_name="resample_mean_cnn14",
+                                encoder_params=pann_tree("resample_mean_cnn14"), indexes=keep, batch_size=2,
+                                device="cpu")
+    recs = profiling.records()
+    by = {name: [r for r in recs if r.name == name] for name in
+          ("pack_dataset", "load_ahead", "native_load", "load_file", "pann_encode", "pack_collect",
+           "pack_write")}
+    batches = -(-len(keep) // 2)
+    assert [len(v) for v in by.values()] == [1, batches, batches, len(keep), batches, batches, 1]
+    root = by["pack_dataset"][0]
+    assert root.attrs == {"files": len(keep), "batch": 2}
+    assert all(r.root == root.id for v in by.values() for r in v)
+    assert all(r.parent == root.id for n in ("load_ahead", "pann_encode", "pack_collect", "pack_write")
+               for r in by[n])
+    ahead = {r.id for r in by["load_ahead"]}
+    assert all(r.parent in ahead and r.thread != root.thread for r in by["native_load"])
+    assert [r.attrs["files"] for r in by["load_ahead"]] == [len(keep[b:b + 2]) for b in range(0, len(keep), 2)]
+    lens = [len(m) for m in prepare.PannFrontend("resample_mean_cnn14", pann_tree("resample_mean_cnn14"),
+                                                  device="cpu").load(ds, keep)]
+    valid = sum(1 + n // 320 for n in lens)
+    from conette_torch.huggingface.preprocessor import bucket_length
+
+    padded = sum(len(lens[b:b + 2]) * (1 + bucket_length(max(lens[b:b + 2])) // 320)
+                 for b in range(0, len(lens), 2))
+    assert sum(r.attrs["padded_frames"] for r in by["pann_encode"]) == padded
+    assert [r.attrs["rows"] for r in by["pann_encode"]] == [len(lens[b:b + 2]) for b in range(0, len(lens), 2)]
+    assert profiling.summary()["counters"] == {"pann_valid_frames": valid, "pann_pad_frames": padded - valid}
+
+
+def test_a_clip_too_short_for_the_pools_raises():
+    from conette_torch.models import pann
+    from conette_torch.weights import to_torch
+
+    tree = to_torch(pann_tree("resample_mean_cnn14"))
+    wav = torch.zeros((2, 32_000))
+    with pytest.raises(ValueError, match="shorter than 9920 samples"):
+        pann.pann_frames_masked(tree, wav, torch.tensor([32_000, 31 * 320 - 1]))
+    assert pann.pann_frames_masked(tree, wav, torch.tensor([32_000, 31 * 320]))["frame_embs_lens"].tolist() == [3, 1]
+
+
+def test_an_unknown_audio_t_raises_naming_the_known_ones(corpus, tmp_path):
+    audio_dir, csv_path = corpus
+    ds = prepare.scan_local_dataset(audio_dir, csv_path, "clotho", "dev")
+    with pytest.raises(ValueError, match="resample_mean_cnn14"):
+        prepare.pack_dataset_to_hdf(ds, str(tmp_path), audio_t_name="resample_mean_beats", device="cpu")
+    with pytest.raises(ValueError, match="resample_mean_convnext"):
+        prepare.main_prepare(["--audio_dir", audio_dir, "--captions_csv", csv_path, "--out_dir", str(tmp_path),
+                              "--audio_t", "cnn14", "--device", "cpu"])
+
+
+def test_the_cli_packs_cnn14_rows(corpus, tmp_path):
+    audio_dir, csv_path = corpus
+    tree = pann_tree("resample_mean_cnn14")
+    npz = str(tmp_path / "cnn14.npz")
+    save_params_npz(npz, tree)
+    assert prepare.main_prepare(["--audio_dir", audio_dir, "--captions_csv", csv_path, "--out_dir", str(tmp_path),
+                                 "--audio_t", "resample_mean_cnn14", "--encoder", npz, "--batch_size", "3",
+                                 "--device", "cpu", "--debug"]) == 0
+    ds = prepare.scan_local_dataset(audio_dir, csv_path, "clotho", "dev")
+    assert_rows_equal(str(tmp_path / "clotho_dev_resample_mean_cnn14_ident.hdf"),
+                      each_clip_alone(ds, prepare.filter_dataset(ds), tree), 32)
+
+
+class LongerClotho(FakeClotho):
+    """``FakeClotho``'s items at 1.2 s, long enough for Cnn14's pools."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        rng = np.random.default_rng(1)
+        for item in self._items:
+            item["audio"] = (0.1 * rng.standard_normal(38_400)).astype(np.float32)
+
+
+def test_config_mode_packs_cnn14_through_the_pann_registry(monkeypatch, tmp_path):
+    """``audio_t=resample_mean_cnn14``: its ``pretrain_path`` (Cnn14) loads
+    through ``load_registry_pann``, and the pack holds Cnn14 rows under the
+    Cnn14 file name."""
+    from conette_torch.huggingface import convert_pann
+
+    tree = pann_tree("resample_mean_cnn14")
+    asked = []
+    monkeypatch.setattr(convert_pann, "load_registry_pann", lambda name: asked.append(name) or tree)
+    fake = types.ModuleType("aac_datasets")
+    fake.Clotho = LongerClotho
+    monkeypatch.setitem(sys.modules, "aac_datasets", fake)
+    argv = ["data=clotho", "data.download=true", "data.subsets=[dev]", "data.bsize=2",
+            "audio_t=resample_mean_cnn14", f"out_root={tmp_path}", "device=cpu"]
+    assert prepare.main_prepare(argv) == 0
+    assert asked == ["Cnn14"]
+    name = "clotho_dev_resample_mean_cnn14_ident.hdf"
+    assert os.listdir(tmp_path) == [name]
+    from conette_torch.models import pann
+    from conette_torch.native import loader
+    from conette_torch.weights import to_torch
+
+    packed = HDFDataset(str(tmp_path / name))
+    for i, item in enumerate(LongerClotho()._items):
+        mono = loader.resample_batch([item["audio"][None]], [item["sr"]], 32_000)[0]
+        want = pann.pann_apply(to_torch(tree), torch.from_numpy(mono[None]))["frame_embs"][0].T.numpy()
+        np.testing.assert_allclose(packed.at(i, "audio"), want, rtol=0, atol=1e-6 * max(1.0, np.abs(want).max()))
+        assert packed.at(i, "captions") == item["captions"]
+
+
+def test_registry_weights_dispatch_on_the_name(monkeypatch, ckpt_dir, encoder):
+    from conette_torch.huggingface import convert_pann
+
+    monkeypatch.setattr(convert_pann, "load_registry_pann", lambda name: {"pann": name})
+    assert prepare.load_registry_weights("Cnn14") == {"pann": "Cnn14"}
+    assert prepare.load_registry_weights("Cnn10") == {"pann": "Cnn10"}
+    got = flatten_pytree(prepare.load_registry_weights("cnext_bl_75"))
+    assert got.keys() == flatten_pytree(encoder).keys()

@@ -111,3 +111,20 @@ def test_a_training_step_reads_nothing_back_to_the_host(h100):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(metrics["train/loss"]))
+
+
+def test_pinned_batches_copy_each_array_into_pinned_memory(h100):
+    """``train/loop.py::pinned_batches`` with ``pin``: each numeric array,
+    contiguous or not, in pinned memory bit for bit; other values as they
+    were."""
+    from conette_torch.train.loop import pinned_batches
+
+    rng = np.random.default_rng(0)
+    audio = rng.standard_normal((4, 9, 6)).astype(np.float32)
+    batch = {"audio": audio, "lens": np.arange(4, dtype=np.int32), "caps": np.arange(24).reshape(4, 6).T,
+             "mask": audio[..., 0] > 0, "names": ["a", "b", "c", "d"]}
+    (got,) = list(pinned_batches(iter([batch]), True))
+    for k in ("audio", "lens", "caps", "mask"):
+        assert got[k].is_pinned() and got[k].dtype == torch.from_numpy(np.ascontiguousarray(batch[k])).dtype
+        assert np.array_equal(got[k].numpy(), batch[k]), k
+    assert got["names"] is batch["names"]
