@@ -36,6 +36,7 @@ from conette_torch.data.datasets import (
     AACDuplicate,
     WrapperSampler,
 )
+from conette_torch.data.gather import BatchGather
 from conette_torch.data.hdf import HDFDataset
 from conette_torch.tokenization import AACTokenizer
 from conette_torch.utils.profiling import span
@@ -289,12 +290,12 @@ class HDFDataModule:
         # must cover them all. Lengths come from the stored audio_lens /
         # audio_shape columns; reading full audio rows is the last resort.
         self._audio_pad_to = 0
+        # the training batches' reader: each pack's lengths and small
+        # columns read once, in one vectorised read each
+        self._gather = BatchGather(self, datasets)
         if self.fixed_shapes:
-            lens = []
-            for ds in datasets:
-                for i in range(len(ds)):
-                    lens.append(_item_audio_len(ds, i))
-            self._audio_pad_to = max(lens, default=0)
+            lens = [self._gather.leaf(ds).stored_lens() for ds in datasets]
+            self._audio_pad_to = max((int(x.max()) for x in lens if len(x)), default=0)
 
         self._val = [HDFDataset(p) for p in self.val_fpaths]
 
@@ -311,38 +312,6 @@ class HDFDataModule:
         return self._train
 
     # --------------------------------------------------------------- items
-    def _train_item(
-        self, ds: AACDatasetLike, idx: int, epoch: int = 0
-    ) -> dict[str, Any]:
-        item = ds[idx]
-        refs = item["captions"]
-        if isinstance(refs, list):
-            # random 1-of-R reference (reference
-            # OnlineEncodeCaptionsTransform), derived from (seed, epoch,
-            # idx) so the choice is independent of iteration order — under
-            # multi-host sharding every process must agree on the caption
-            # row idx would get in the single-process run
-            item_rng = np.random.default_rng((self.seed, epoch, idx))
-            ref = refs[int(item_rng.integers(len(refs)))]
-        else:
-            ref = refs
-        # train-time OOV RAISES like the reference's train transform
-        # (hdf.py:332-338 passes default=None) — after a raw-corpus fit
-        # every train word is in-vocab, so OOV here means a fit/vocab bug
-        # that must surface, not map to <unk>
-        caps = self.tokenizer.encode_single(ref, add_bos_eos=True)
-        caps = caps[: self.caption_max_len]
-        audio = np.asarray(item["audio"], np.float32)
-        if self.audio_transform is not None:
-            audio = self.audio_transform(audio)
-        return {
-            "audio": audio,
-            "audio_lens": int(item.get("audio_lens", audio.shape[0])),
-            "captions": caps.astype(np.int32),
-            "dataset": item.get("dataset", "unknown"),
-            "source": item.get("source"),
-        }
-
     def _eval_item(self, ds: AACDatasetLike, idx: int, subset: str) -> dict[str, Any]:
         item = ds[idx]
         raw = item.get("captions", [])
@@ -442,15 +411,15 @@ class HDFDataModule:
         for b in range(n_full):
             start = b * global_bsize + self.process_rank * self.bsize
             idxs = order[start : start + self.bsize]
-            # spans rooted at (epoch, the batch's index), as fit's for it
+            # spans rooted at (epoch, the batch's index), as fit's for it;
+            # the rows gathered in one pass (data/gather.py), the batch the
+            # items collated would give
             with span("build_batch", root=(epoch, b)):
-                with span("read_items"):
-                    items = [self._train_item(self._train, int(i), epoch) for i in idxs]
+                with span("read_items") as read:
+                    rows = self._gather.read(self._train, idxs, epoch, collate)
+                    read.set(route=rows.route, rows=len(idxs))
                 with span("collate"):
-                    batch = collate(items)
-                    lens = np.asarray([it["audio_lens"] for it in items], np.int32)
-                    batch["audio_lens"] = lens
-                    batch = self._postprocess(batch)
+                    batch = self._postprocess(self._gather.collate(rows, collate))
             yield batch
 
     def eval_batches(

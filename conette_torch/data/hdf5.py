@@ -10,7 +10,9 @@ h5py's behaviour, for the part of HDF5 that ``pack_to_hdf`` writes and
   variable-length strings (``string_dtype()``), stored contiguous;
 - ``File(path, "r" | "w")``, ``file.attrs``, ``file[name]``, ``name in
   file``, ``create_dataset(name, data=, dtype=, compression=None)``,
-  ``dataset[i]``, ``dataset[:]``, ``.dtype``, ``.shape``.
+  ``dataset[i]``, ``dataset[:]``, ``.dtype``, ``.shape``; and, beyond
+  h5py, ``dataset.read_rows_into``, which reads rows straight into a
+  caller's buffer (``data/gather.py``'s training batches).
 
 The writer lays files out as the HDF5 library does for h5py's defaults
 (superblock version 0, version-1 object headers, a symbol-table root group,
@@ -185,6 +187,22 @@ class Dataset:
         else:
             out = np.frombuffer(raw, dtype=self._type, count=n).copy()
         return out.reshape((count,) + self.shape[1:])
+
+    def read_rows_into(self, rows: list[int], items: list[int], dest: memoryview,
+                       offsets: list[int]) -> None:
+        """Read the first ``items[i]`` elements of row ``rows[i]`` straight
+        into the bytes ``dest`` at ``offsets[i]``: one ``os.preadv`` a row,
+        which runs without the GIL. A dataset never written reads as zeros."""
+        if self._type == "vlen_str":
+            raise NotImplementedError("rows of strings are not read into a buffer")
+        row, fd = self._row_items * self._size, self._reader.fd
+        for r, n, o in zip(rows, items, offsets):
+            nbytes = n * self._size
+            view = dest[o:o + nbytes]
+            if self._addr == UNDEF:
+                view[:] = bytes(nbytes)
+            elif os.preadv(fd, [view], self._addr + r * row) != nbytes:
+                raise ValueError(f"truncated HDF5 file: wanted {nbytes} bytes of row {r}")
 
     def __getitem__(self, idx: Any) -> Any:
         if isinstance(idx, (int, np.integer)):

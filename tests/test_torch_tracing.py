@@ -6,7 +6,9 @@ trace; ``benchmark/harness.py::reduce_trace`` attributing alike with a
 program span nested in a wrapper of its name; a tiny ``CoNeTTEModel.forward``
 bit for bit with the recorder and a profiler on, its ``decode_steps`` the
 steps its loop ran; ``fit``'s ``batch_wait_s`` the sum of its spans; and
-``main_train`` logging the fit's summary."""
+``main_train`` logging the fit's summary; a gathered training batch's
+``build_batch``, ``read_items`` (its ``route`` and ``rows``), ``collate``
+and ``pin`` under the batch's root, and the caption memo's counter."""
 
 import json
 import os
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from conette_torch.data.datamodule import HDFDataModule
 from conette_torch.data.datasets import DummyAACDataset
 from conette_torch.data.hdf import pack_to_hdf
 from conette_torch.data.prefetch import prefetch_iterator
@@ -99,6 +102,27 @@ def test_the_prefetch_thread_roots_a_batch_at_its_epoch_and_index():
     assert {p.thread for p in pins} != {threading.get_ident()} and len({p.thread for p in pins}) == 1
     waits = by_name("queue_full")
     assert waits and {w.thread for w in waits} == {pins[0].thread} and all(w.seconds > 0 for w in waits)
+
+
+def test_a_gathered_batch_keeps_its_spans_under_its_root(tmp_path):
+    """``train_batches`` gathers a batch inside ``build_batch`` (its
+    ``read_items``, with the route and the rows read, then ``collate``), and
+    ``pinned_batches`` pins it in ``pin``: all four a batch, rooted at
+    (epoch, the batch's index); captions drawn again hit the memo."""
+    fpath = str(tmp_path / "clotho_dev_x.hdf")
+    pack_to_hdf(DummyAACDataset(size=12, seed=0, dataset_name="clotho"), fpath)
+    dm = HDFDataModule(AACTokenizer(), [fpath], bsize=4, seed=0)
+    dm.setup_fit()
+    for epoch in range(3):
+        assert len(list(prefetch_iterator(pinned_batches(dm.train_batches(epoch), False, epoch)))) == 3
+    roots = [(e, i) for e in range(3) for i in range(3)]
+    builds = by_name("build_batch")
+    assert [b.root for b in builds] == roots and [p.root for p in by_name("pin")] == roots
+    for name in ("read_items", "collate"):
+        inner = by_name(name)
+        assert [r.parent for r in inner] == [b.id for b in builds] and [r.root for r in inner] == roots
+    assert [r.attrs for r in by_name("read_items")] == [{"route": "gather", "rows": 4}] * 9
+    assert profiling.summary()["counters"]["caption_memo_hits"] > 0
 
 
 def test_the_native_loaders_pool_spans_its_files_under_the_callers_load(tmp_path):

@@ -128,3 +128,46 @@ def test_pinned_batches_copy_each_array_into_pinned_memory(h100):
         assert got[k].is_pinned() and got[k].dtype == torch.from_numpy(np.ascontiguousarray(batch[k])).dtype
         assert np.array_equal(got[k].numpy(), batch[k]), k
     assert got["names"] is batch["names"]
+
+
+def test_gathered_batches_are_new_pinned_tensors(h100, tmp_path):
+    """The datamodule gathers each batch into new pinned tensors, which
+    ``pinned_batches`` hands on as they are: the audio, captions and lengths
+    pinned, each batch's tensors their own while the batches before are
+    held, a batch held across the next two builds unchanged, and each equal
+    to the batch gathered into plain numpy arrays. Copies to the card from
+    batches dropped at once hold their values while later batches are built
+    (the blocks wait for the copies before the allocator hands them out)."""
+    from conette_torch.data.datamodule import HDFDataModule
+    from conette_torch.data.datasets import DummyAACDataset
+    from conette_torch.data.hdf import pack_to_hdf
+    from conette_torch.tokenization import AACTokenizer
+    from conette_torch.train.loop import pinned_batches
+
+    keys = ("audio", "captions", "audio_lens")
+    fpath = str(tmp_path / "clotho_dev_x.hdf")
+    pack_to_hdf(DummyAACDataset(size=40, seed=0, audio_frames=31, feat=64), fpath)
+    dm = HDFDataModule(AACTokenizer(), [fpath], bsize=8, seed=1)
+    dm.setup_fit()
+    held = []
+    for b in pinned_batches(dm.train_batches(0), True):
+        for k in keys:
+            assert b[k].is_pinned(), k
+            assert all(b[k].data_ptr() != h[k].data_ptr() for h, _ in held), k
+        held.append((b, {k: b[k].clone() for k in keys}))
+        if len(held) >= 3:  # held across the next two builds
+            assert all(torch.equal(held[-3][0][k], held[-3][1][k]) for k in keys)
+    assert len(held) == 5
+    dm._gather.pin = False
+    plain = list(pinned_batches(dm.train_batches(0), False))
+    for (b, _), p in zip(held, plain):
+        assert not p["audio"].is_pinned()
+        assert all(torch.equal(b[k], p[k]) for k in keys)
+    dm._gather.pin = True
+    on_card = [{k: b[k].to(h100, non_blocking=True) for k in keys}
+               for b in pinned_batches(dm.train_batches(0), True)]
+    for _ in pinned_batches(dm.train_batches(1), True):
+        pass
+    torch.cuda.synchronize()
+    for d, p in zip(on_card, plain):
+        assert all(torch.equal(d[k].cpu(), p[k]) for k in keys)

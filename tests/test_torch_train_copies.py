@@ -7,7 +7,12 @@ docstrings, the JAX package's name read as the port's. The differences on
 purpose: ``data/hdf.py`` reads and writes HDF5 through the port's
 ``data/hdf5.py`` in place of h5py, so that the port needs no h5py;
 ``data/datamodule.py`` and ``data/prefetch.py`` open the port's spans
-around a training batch's build and the prefetch thread's wait; and
+around a training batch's build and the prefetch thread's wait;
+``data/datamodule.py`` builds a training batch in one pass through the
+port's ``data/gather.py`` (the rows read straight into the batch, the
+captions' tokens from a memo), the batch that reading each item and
+collating the items gave, so it has no ``_train_item``, and takes the
+fixed-shape probe's lengths from the packs' columns read once; and
 ``parity.py`` joins its ``DEFAULT_OUTPUTS_DIR`` from the path's parts."""
 
 import ast
@@ -32,22 +37,42 @@ COPIES = (
 _OUTPUTS = os.path.join(os.sep, "root", "reference", "results", "detailed_outputs")
 
 # the spans of the port's recorder (utils/profiling.py) around a training
-# batch's build, and around the prefetch thread's wait on a full queue
+# batch's build, which the copy gathers in one pass (data/gather.py), and
+# around the prefetch thread's wait on a full queue
 _BUILD = """            items = [self._train_item(self._train, int(i), epoch) for i in idxs]
             batch = collate(items)
             lens = np.asarray([it["audio_lens"] for it in items], np.int32)
             batch["audio_lens"] = lens
             yield self._postprocess(batch)
 """
-_BUILD_SPANNED = """            with span("build_batch", root=(epoch, b)):
-                with span("read_items"):
-                    items = [self._train_item(self._train, int(i), epoch) for i in idxs]
+_BUILD_GATHERED = """            # spans rooted at (epoch, the batch's index), as fit's for it;
+            # the rows gathered in one pass (data/gather.py), the batch the
+            # items collated would give
+            with span("build_batch", root=(epoch, b)):
+                with span("read_items") as read:
+                    rows = self._gather.read(self._train, idxs, epoch, collate)
+                    read.set(route=rows.route, rows=len(idxs))
                 with span("collate"):
-                    batch = collate(items)
-                    lens = np.asarray([it["audio_lens"] for it in items], np.int32)
-                    batch["audio_lens"] = lens
-                    batch = self._postprocess(batch)
+                    batch = self._postprocess(self._gather.collate(rows, collate))
             yield batch
+"""
+# the fixed-shape probe's lengths: item by item in the original, from each
+# pack's columns read once (the batches' reader) in the copy
+_PROBE = """        self._audio_pad_to = 0
+        if self.fixed_shapes:
+            lens = []
+            for ds in datasets:
+                for i in range(len(ds)):
+                    lens.append(_item_audio_len(ds, i))
+            self._audio_pad_to = max(lens, default=0)
+"""
+_PROBE_GATHERED = """        self._audio_pad_to = 0
+        # the training batches' reader: each pack's lengths and small
+        # columns read once, in one vectorised read each
+        self._gather = BatchGather(self, datasets)
+        if self.fixed_shapes:
+            lens = [self._gather.leaf(ds).stored_lens() for ds in datasets]
+            self._audio_pad_to = max((int(x.max()) for x in lens if len(x)), default=0)
 """
 _PUT = """            for item in it:
                 q.put(item)
@@ -61,13 +86,28 @@ _PUT_SPANNED = """            for i, item in enumerate(it):
 """
 _SPAN_IMPORT = "from conette_torch.utils.profiling import span\n"
 
+
+def _method(path: str, name: str, following: str) -> str:
+    """The text of the method ``name`` of ``path``, up to the method ``following``."""
+    with open(os.path.join(REPO, path)) as f:
+        text = f.read()
+    return text[text.index(f"    def {name}("):text.index(f"    def {following}(")]
+
+
+# the copy gathers a batch's rows itself (data/gather.py): no item reader
+_TRAIN_ITEM = _method("conette_tpu/data/datamodule.py", "_train_item", "_eval_item")
+
 # (text in the original, its replacement in the copy, occurrences)
 DIFFERENCES = {
     "data/hdf.py": [("import h5py\n", "from conette_torch.data import hdf5 as h5py\n", 2)],
     "data/datamodule.py": [
         ("from conette_tpu.tokenization import AACTokenizer\n",
          "from conette_tpu.tokenization import AACTokenizer\n" + _SPAN_IMPORT, 1),
-        (_BUILD, _BUILD_SPANNED, 1)],
+        ("from conette_tpu.data.hdf import HDFDataset\n",
+         "from conette_tpu.data.gather import BatchGather\nfrom conette_tpu.data.hdf import HDFDataset\n", 1),
+        (_PROBE, _PROBE_GATHERED, 1),
+        (_TRAIN_ITEM, "", 1),
+        (_BUILD, _BUILD_GATHERED, 1)],
     "data/prefetch.py": [
         ("from typing import Any, Iterable, Iterator\n",
          "from typing import Any, Iterable, Iterator\n\n" + _SPAN_IMPORT, 1),
