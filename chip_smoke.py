@@ -1,126 +1,113 @@
 #!/usr/bin/env python3
-"""Smoke run of conette_torch on one NVIDIA H100: the quickest proof that
-the port builds, is right and runs its main path on the card.
+"""The port's correctness run on one NVIDIA H100: the quickest proof that
+conette_torch builds, is right on the card and runs every path through
+its kernels. Its only timing is phase 2's kernel table; the benchmark
+(``benchmark/run.py``) measures the paths end to end.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+Phases (any failed check exits non-zero):
 1. print the card (``nvidia-smi`` name and power limit), require sm_90,
    build the CUDA kernels from ``conette_torch/csrc`` into ``build/``;
-2. hold each kernel against its plain PyTorch version at every main-path
+2. the kernels: each against its plain PyTorch version at every main-path
    shape (batch 8; block and seam in bf16 with layer scale N(0, 0.1), max
    relative error < 0.02; the block also at the 1 s corpus bucket's four
    stages and at stage 1 at batch 1, the seam also at the 1 s bucket's
    three seams (odd T, ragged tiles) and at (2, 126, 28, 192); log-mel on
    8 x 10 s of waveform at f32 and bf16 compute, with and without the bn0
-   affine, and on the 1 s corpus bucket at bf16 with it, within the
-   tolerances at ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``, its silent
-   tail on the -100 dB floor; every kernel bit-equal over two launches,
-   over the 28 launches of its timed wrapper calls and on memory that the
-   caching allocator hands over poisoned with 0xFF bytes against zeroed
-   memory), and time them with CUDA events (median of 25 runs after a
-   warm-up): the block and the seam both through their wrappers (``ms``)
-   and as the launch alone on operands prepared outside the timed region
-   (``launch_ms``), and at other splits of the block's hidden layer or
-   slices of the seam's columns where their tiles do not fill the card;
-   the seam beside ``F.layer_norm`` + ``F.conv2d`` (``library_ms``, two
-   calls); the log-mel kernel also against the unfused bf16 frontend it
-   replaces;
-3. build a full-width CoNeTTE (ConvNeXt-Tiny, 6-layer 256-wide decoder,
-   8 heads, ff 2048, beam 3, 3..20 tokens) from a seed, with a tokenizer
-   fitted on ~4000 generated words, ``save_pretrained`` it, load it back
-   with ``conette_torch.conette(path, compute_dtype=torch.bfloat16)`` and
-   answer 3 requests of 8 clips of 10 s at 44.1 kHz: the first captures
-   the encoder graph and the decode graph (each kernel launched for the
-   warm-up and once in the capture), the others replay them; a replayed
-   request's profile must show 1 log-mel, 18 block and 3 seam kernels;
-   the replays of the decode graph at beam 3 and greedy, under
-   ``torch.cuda.set_sync_debug_mode("error")``, are held against eager
-   calls of ``encode_audio`` and ``forward_generate`` / ``forward_greedy``
-   on the same encoder output (equal tokens, lprobs within 1e-5); the
-   kernel encoder is held against the plain bf16 encoder on one request,
-   and the f32 path on the card against the f32 path on the CPU on two
-   short clips; a request of 3 clips must replay the same programs (padded
-   to their 8 rows) and capture nothing; stage times, capture times, graph
-   memory and the device's busy share of a replayed request; then the
-   decode's early exit (``guarded_decode``): the projection and beam 3
-   captured with each step under a CUDA graph conditional node against
-   the same program running every step, with caption lengths forced by
-   ``eos_schedule`` at ``target_lengths`` (the JAX bench's Clotho draws,
-   seed 7) for 1, 3 and 8 clips on f32 and bf16 memory: the same bits
-   (also after a full-length replay and when captured on memory poisoned
-   with 0xFF and 0x00), the steps run equal to the longest scripted length
-   among the real rows (a counting twin), and each replay's device time
-   guarded against fixed-step in 20 turns of one replay each, each replay
-   behind a ~1 ms spin so that its events hold no host launch (each
-   program's minimum and median, and the median of the turns' ratios), at
-   each size and at full length (random weights), printed with the card's
-   name and power limit; the cost of the conditional nodes alone, around
-   bodies of 1 and of 300 kernels (``conditional_node_cost_us``); and the
-   model's own request decode (beam 3 and greedy), corpus batch and
-   sharded caption function, guarded against fixed-step, bit-equal at full
-   length and with every caption ended at ``min_pred_size`` by the
-   classifier's EOS bias;
-   without conditional nodes the run fails;
-4. serve a corpus of 32 WAV and FLAC files (0.8..9.5 s at 44.1 and 32 kHz,
-   4 length buckets of 8, so no batch holds silence rows) with
-   ``conette_torch.serving``: ``warmup`` for the buckets (which captures
-   their programs), then ``caption_corpus(..., batch_size=8)`` with a task
-   per clip, 3 times, with the host's file decode timed inside each call,
-   and once more under the profiler, where every batch must run 1 + 18 +
-   3 kernels; results in input order with their tasks;
-5. export the model at batch 8 x 10 s with ``conette_torch.export``, save
-   it, load it and replay it: its log-mel node must compute in bf16, its
-   tokens must equal the live graph path's on the same padded batch, its
-   clip probabilities and lprobs must agree with them within 1e-6 and
-   1e-5, and its profile must show 1 + 18 + 3 custom-op calls and 18 + 3
-   block and seam kernels (its log-mel kernel rows are printed: the trace
-   loses them at random late in the run);
-6. train: pack a corpus with ``conette_torch/data/hdf.py`` (4 x 512 train
-   items of (31, 768) f32 embeddings, 128 val and 128 test items with 5
-   captions each, 3..20 of ``fit_tokenizer``'s 4000 words a caption);
-   hold one training step on the card against the same step on the CPU
-   (batch 512, dropout 0, a fixed mixup (λ, pairing), no augmentation:
-   loss within 1e-5, gradients and post-step parameters within 1e-4, each
-   relative to its largest value, the elements whose gradient sign is
-   rounding held to 2·lr apart); time the production step (CUDA events
-   around 10 steps after a warm-up; samples/s, peak memory) and check that
-   the loss falls over 8 steps on one repeated batch; run ``main_train``
-   with ``expt=hp_clotho_v2`` (pl/conette's d_model 256 x 6 layers, 8
-   heads, ff 2048, dropout 0.2 / 0.5, mixup 0.4, label smoothing 0.2;
-   AdamW lr 5e-4, wd 2.0 with the split, cos_decay, clip 1, SpecAugmentRatio
-   on the embeddings; bsize 512), 2 epochs, checkpoints on the validation
-   loss, validation and test at beam 3; then load the run directory with
-   ``CoNeTTEModel.from_pretrained(run_dir, device="cuda")`` and the bf16
-   encoder, caption 8 x 10 s clips (2 + 36 + 6 wrapper launches as the
-   first request captures, 18 + 3 block and seam kernels in a profiled
-   replay, its log-mel call held as phase 5 holds it: the eager bf16
-   encoder on its waveforms launches 1 + 18 + 3 and gives its clip
-   probabilities; the decode replay held against eager calls);
-7. prepare, host audio and the PANN encoders: write a local corpus (96
-   WAV clips of 1-29.5 s at 44.1, 48 and 32 kHz, mono and stereo, and 32
-   FLAC clips of 1-2 s; dev, val and test subsets with a captions CSV
-   each); build the native audio loader and hold ``load_batch`` against
-   the numpy route on 32 of the WAVs (2e-5); pack each subset with
+   affine, and on the 1 s bucket at bf16 with it, within
+   ``LOGMEL_F32_TOL`` and ``LOGMEL_BF16_ATOL``, its silent tail on the
+   -100 dB floor); every kernel bit-equal over two launches, over the 28
+   launches of its timed wrapper calls and on memory that the caching
+   allocator hands over poisoned with 0xFF bytes against zeroed memory.
+   The kernel table: CUDA-event medians of 25 runs after a warm-up of the
+   wrapper (``ms``), the launch alone on operands prepared outside the
+   timed region (``launch_ms``) and the plain version (``plain_ms``); the
+   block's launch at other splits of its hidden layer and the seam's at
+   other slices of its columns where their tiles do not fill the card;
+   the seam's ``F.layer_norm`` + ``F.conv2d`` yardstick (``library_ms``)
+   and the unfused bf16 frontend that the log-mel kernel replaces
+   (``unfused_ms``); each beside its bound (``benchmark/roofline.py``);
+3. the main path: a full-width CoNeTTE (ConvNeXt-Tiny, 6-layer 256-wide
+   decoder, 8 heads, ff 2048, beam 3, 3..20 tokens) built from seeds with a
+   tokenizer fitted on ~4000 generated words, saved and loaded with
+   ``conette_torch.conette(path, compute_dtype=torch.bfloat16)``. Of 3
+   requests of 8 clips of 10 s at 44.1 kHz the first captures the encoder
+   and decode graphs (each kernel launched for the warm-up and once in the
+   capture) and the others replay them; a replayed request's profile
+   shows 1 log-mel, 18 block and 3 seam kernels; requests of 3 and 8 clips
+   replay the same 8-row programs and capture nothing. The decode replays
+   at beam 3 and greedy, under ``torch.cuda.set_sync_debug_mode("error")``,
+   equal eager calls of ``encode_audio`` and ``forward_generate`` /
+   ``forward_greedy`` on the same encoder output (equal tokens, lprobs
+   within 1e-5); the kernel encoder holds to the plain bf16 encoder on one
+   request, and the f32 path on the card to the f32 path on the CPU on two
+   short clips. Then the decode's early exit (``guarded_decode``): the
+   projection and beam 3 captured with each step under a CUDA graph
+   conditional node against the same program running every step, with
+   caption lengths forced by ``eos_schedule`` at ``target_lengths`` for 1,
+   3 and 8 clips on f32 and bf16 memory: the same bits (also after a
+   full-length replay and when captured on memory poisoned with 0xFF and
+   0x00), and the steps run equal to the longest scripted length among the
+   real rows (a counting twin); and the model's own request decode (beam 3
+   and greedy), corpus batch and sharded caption function, guarded against
+   fixed-step, bit-equal at full length and with every caption ended at
+   ``min_pred_size`` by the classifier's EOS bias; without conditional
+   nodes the run fails;
+4. corpus serving: 32 WAV and FLAC files (0.8..9.5 s at 44.1 and 32 kHz,
+   4 length buckets of 8, so no batch holds silence rows) through
+   ``warmup`` (which captures the buckets' programs), then
+   ``caption_corpus(..., batch_size=8)`` with a task per clip under the
+   profiler: results in input order with their tasks, and every batch runs
+   1 + 18 + 3 kernels;
+5. export: the model at batch 8 x 10 s through ``conette_torch.export``,
+   saved, loaded and replayed: its log-mel node computes in bf16, its
+   tokens equal the live graph path's on the same padded batch, its clip
+   probabilities and lprobs agree with them within 1e-6 and 1e-5, and its
+   profile shows 1 + 18 + 3 custom-op calls and 18 + 3 block and seam
+   kernels (its log-mel kernel rows are printed: the trace loses them at
+   random late in the run);
+6. training: packs of ``conette_torch/data/hdf.py`` (4 x 512 train items
+   of (31, 768) f32 embeddings, 128 val and 128 test items with 5 captions
+   each, 3..20 of ``fit_tokenizer``'s 4000 words a caption); one training
+   step on the card against the same step on the CPU (batch 512, dropout
+   0, a fixed mixup (λ, pairing), no augmentation: loss within 1e-5,
+   gradients and post-step parameters within 1e-4, each relative to its
+   largest value, the elements whose gradient sign is rounding held to
+   2·lr apart); the production step's loss falls over 8 steps on one
+   repeated batch; ``main_train`` with ``expt=hp_clotho_v2`` (pl/conette's
+   d_model 256 x 6 layers, 8 heads, ff 2048, dropout 0.2 / 0.5, mixup 0.4,
+   label smoothing 0.2; AdamW lr 5e-4, wd 2.0 with the split, cos_decay,
+   clip 1, SpecAugmentRatio on the embeddings; bsize 512) for 2 epochs,
+   checkpoints on the validation loss, validation and test at beam 3, and
+   its run directory's files; then ``CoNeTTEModel.from_pretrained(run_dir,
+   device="cuda")`` with the bf16 encoder captions 8 x 10 s clips (2 + 36 +
+   6 wrapper launches as the first request captures, 18 + 3 block and seam
+   kernels in a profiled replay, its log-mel call held as phase 5 holds
+   it: the eager bf16 encoder on its waveforms launches 1 + 18 + 3 and
+   gives its clip probabilities; the decode replay held against eager
+   calls);
+7. prepare, host audio and the PANN encoders: a local corpus (96 WAV
+   clips of 1-29.5 s at 44.1, 48 and 32 kHz, mono and stereo, and 32 FLAC
+   clips of 1-2 s; dev, val and test subsets with a captions CSV each);
+   the native audio loader's ``load_batch`` against the numpy route on 32
+   of the WAVs (2e-5); each subset packed with
    ``conette_torch.prepare.main_prepare([..., "--debug"])`` on the default
    device (the full-width ConvNeXt-Tiny at f32 through the preprocessor's
    captured encoder programs, batch 8; no kernel launch, the f32 route is
-   the plain one), timing the host's decode and resample apart from the
-   encoder calls; read the packs back and hold 4 dev rows against the f32
-   encoder on the CPU over the same batch (1e-4); run ``main_train`` on
-   the packs for 1 epoch of 2 steps (``dm.bsize`` 32) and caption 2 files
-   from its run directory on the card; run Cnn10, Cnn14,
+   the plain one); the packs read back and 4 dev rows held to the f32
+   encoder on the CPU over the same batch (1e-4); ``main_train`` on the
+   packs for 1 epoch of 2 steps (``dm.bsize`` 32) and 2 files captioned
+   from its run directory on the card; Cnn10, Cnn14,
    Cnn14_DecisionLevelAtt and the 16 architectures and heads of
-   ``models/pann_zoo.py`` (``ZOO_NAMES``: ResNet22/38/54, MobileNetV1/V2,
-   Cnn6, the three Wavegram encoders, LeeNet11/24, DaiNet19,
-   Res1dNet31/51, Cnn14_DecisionLevelMax/Avg; their batch norms
-   randomised, their conv biases zero) at full width on 8 x 10 s clips at
-   f32 (time a call: median of 5) and hold each against the CPU on one
-   clip (1e-4 of the largest value); stage the registry's 8 zoo
-   checkpoints in the reference's layout under ``CONETTE_CKPT_DIR``, load
-   each with ``load_registry_pann`` (equal to the staged tree bit for bit)
-   and run it on the card against the same CPU reference; run
-   ``get_frontend`` for all six names on one clip, card against CPU;
+   ``models/pann_zoo.py`` (``ZOO_NAMES``; their batch norms randomised,
+   their conv biases zero) at full width on 8 x 10 s clips at f32, each
+   held to the CPU on one clip (1e-4 of the largest value); the registry's
+   8 zoo checkpoints staged in the reference's layout under
+   ``CONETTE_CKPT_DIR``, each loaded with ``load_registry_pann`` (equal to
+   the staged tree bit for bit) and run on the card against the same CPU
+   reference; ``get_frontend`` for all six names on one clip, card against
+   CPU;
 8. the parallel layer (run right after phase 4, on its corpus): (a) in a
    one-process NCCL group at full width, ``make_sharded_caption_fn`` on a
    1 x 1 mesh over 8 x 10 s clips gives ``caption_batch``'s tokens bit for
@@ -138,26 +125,28 @@ Phases (any failure exits non-zero):
    32 kHz through ``convnext_apply(deterministic=False,
    drop_path_rate=0.1, gen=..., spec_augment_fn=<SpecAugmentRatio>)``,
    binary cross-entropy of the clip probabilities against random
-   multi-hot targets, a global-norm clip and the port's AdamW: 5 timed
-   steps at f32 and 5 at bf16 compute (median CUDA-event step, peak
-   memory); a profiled bf16 step runs no custom op and no kernel of ours
-   (its route is the plain ops, as the JAX package's); the deterministic
-   bf16 encoder on the same waveforms, before and after the steps, launches
-   1 + 18 + 3 kernels and gives the same bits; one step at 2 x 10 s, f32,
-   card against CPU (``ENC_TRAIN_TOL``); (b) Cnn14 trains 5 timed steps
-   through ``pann_apply(deterministic=False, gen=...)`` with its dropout;
-   the zoo's training-mode forwards (batch statistics, no dropout) and the
-   gradients of Cnn14 (the same dropout masks, drawn on the CPU),
-   ResNet38, MobileNetV2, Res1dNet51 and Wavegram-Logmel-Cnn14, card
-   against CPU at 2 x 10 s, f32 (``PANN_REL_TOL``, ``ENC_TRAIN_TOL``, and
-   past them the conditioning bound at ``COND``);
-10. print a details JSON line (also written to
-   ``chiprun_out/chip_smoke_details.json``), the card line, the ``kernels``
-   JSON line and, last, the device JSON line.
+   multi-hot targets, a global-norm clip and the port's AdamW: 5 steps at
+   f32 and 5 at bf16 compute, their losses finite; a profiled bf16 step
+   runs no custom op and no kernel of ours (its route is the plain ops, as
+   the JAX package's); the deterministic bf16 encoder on the same
+   waveforms, before and after the steps, launches 1 + 18 + 3 kernels and
+   gives the same bits; one step at 2 x 10 s, f32, card against CPU
+   (``ENC_TRAIN_TOL``); (b) Cnn14 trains 5 steps through
+   ``pann_apply(deterministic=False, gen=...)`` with its dropout, its
+   losses finite; the zoo's training-mode forwards (batch statistics, no
+   dropout) and the gradients of Cnn14 (the same dropout masks, drawn on
+   the CPU), ResNet38, MobileNetV2, Res1dNet51 and Wavegram-Logmel-Cnn14,
+   card against CPU at 2 x 10 s, f32 (``PANN_REL_TOL``, ``ENC_TRAIN_TOL``,
+   and past them the conditioning bound at ``COND``);
+10. every kernel launched on every path above; print a details JSON line
+   (also written to ``chiprun_out/chip_smoke_details.json``), the card
+   line, the ``kernels`` JSON line and, last, the device JSON line.
 
-Beside ``main``: ``parallel_alone()`` runs phase 8 on its own, and
-``multicard()`` holds the parallel layer across the four cards of a host
-(NCCL, one process a card) to one card.
+The shared inputs and comparisons (``target_lengths``, ``eos_schedule``,
+``same_bits``, the PANN trees) are ``tests/torch_fixtures.py``'s. Beside
+``main``: ``parallel_alone()`` runs phase 8 on its own, and ``multicard()``
+holds the parallel layer across the four cards of a host (NCCL, one
+process a card) to one card.
 """
 
 from __future__ import annotations
@@ -169,10 +158,25 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 import numpy as np
+
+from benchmark.roofline import PEAK_BF16, PEAK_BYTES, PEAK_F32, block, bound_s, seam
+
+# the fixtures that the tests share, from their directory: an installed
+# package may own the name ``tests``
+sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from torch_fixtures import (  # noqa: E402
+    EOS_FORCE,
+    eos_schedule,
+    outputs_same_bits,
+    random_batch_norms,
+    reference_pann_state,
+    same_bits,
+    target_lengths,
+    without_conv_biases,
+)
 
 BATCH = 8
 # (T, F, C, blocks) of each stage for a 10 s clip, and the seam inputs
@@ -189,9 +193,6 @@ RAGGED_BLOCKS = [(8, 27, 56, 96, 0), (8, 13, 28, 192, 0), (8, 6, 14, 384, 0),
 # seam shapes of the card tests, checked here too: (B, T, F, C)
 CARD_SEAMS = [(2, 126, 28, 192)]
 SPLITS_TRIED = (1, 2, 3, 4, 5, 6, 8)  # hidden-layer splits timed where tiles < SMs
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
-PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (data sheet)
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL = 0.02
 LOGMEL_SAMPLES = 320_000  # 10 s at 32 kHz -> 1001 frames
 LOGMEL_BUCKET_SAMPLES = 32_000  # the 1 s corpus bucket -> 101 frames
@@ -228,16 +229,12 @@ def time_ms(fn, runs: int = 25, check=None) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
-
-
-def same_bits(a, b) -> bool:
-    import torch
-
-    bits = torch.int16 if a.element_size() == 2 else torch.int32
-    return bool(torch.equal(a.view(bits), b.view(bits)))
+def roofline(flops: float, nbytes: float, peak: float = PEAK_BF16) -> dict:
+    """A record's operations and bytes, its bound (``benchmark/roofline.py``)
+    and which of the two sets it."""
+    return dict(bound_ms=bound_s(flops, nbytes, peak) * 1e3,
+                bound_by="operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes",
+                flops=flops, bytes=nbytes)
 
 
 def timed_same_bits(fn, first) -> tuple[float, bool]:
@@ -320,9 +317,6 @@ def check_kernels(dev) -> list[dict]:
         poisoned = same_bits_poisoned(lambda: fused_convnext_block(x, *args), got)
         ms, repeated = timed_same_bits(lambda: fused_convnext_block(x, *args), got)
         p = b * t * f
-        flops = 2 * p * c * 2 * h + 98 * p * c
-        nbytes = 2 * p * c * 2 + 2 * c * h * 2 + 4 * (49 * c + 5 * c + h)
-        bms, by = bound_ms(flops, nbytes)
         # the launch alone, on operands prepared outside the timed region
         ops = prepare_block_operands(*args)
         plan = block_plan(p, c, sm_count(dev))
@@ -333,7 +327,7 @@ def check_kernels(dev) -> list[dict]:
             same_bits_twice=twice, same_bits_repeated=repeated, same_bits_poisoned=poisoned, ms=ms,
             launch_ms=time_ms(lambda: launch_block(x, ops, plan)),
             plain_ms=time_ms(lambda: convnext_block_reference(x, *args)),
-            bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+            **roofline(*block(b, t, f, c)),
         )
         if plan.tiles < sm_count(dev) and depth:  # the launch at other splits of the hidden layer
             rec["launch_ms_by_splits"] = {
@@ -421,9 +415,6 @@ def check_seams(dev, gen) -> list[dict]:
         poisoned = same_bits_poisoned(lambda: fused_downsample(x, *args), got)
         ms, repeated = timed_same_bits(lambda: fused_downsample(x, *args), got)
         p_out = (t // 2) * (f // 2)
-        flops = b * 2 * p_out * 4 * c * 2 * c
-        nbytes = b * ((t - t % 2) * f * c + p_out * 2 * c) * 2 + 4 * c * 2 * c * 2 + 4 * 4 * c
-        bms, by = bound_ms(flops, nbytes)
         ops = prepare_seam_operands(*args)
         plan = seam_plan(b * p_out, c, sm_count(dev))
         # the yardstick's operands, prepared outside its timed region
@@ -439,7 +430,7 @@ def check_seams(dev, gen) -> list[dict]:
             launch_ms=time_ms(lambda: launch_seam(x, ops, plan)),
             plain_ms=time_ms(lambda: downsample_reference(x, *args)),
             library_ms=time_ms(lambda: library_seam(x, *lib)), library_rel_err=lib_err,
-            bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+            **roofline(*seam(b, t, f, c)),
         )
         if plan.tiles < sm_count(dev) and b == BATCH:  # the launch at the other slice counts
             rec["launch_ms_by_slices"] = {
@@ -530,12 +521,11 @@ def check_logmel(dev, gen) -> list[dict]:
             floor_err = float((got[-1, -40:] + 100.0).abs().max())
             ok = ok and floor_err <= 1e-4
         width = 2 if dtype == torch.bfloat16 else 4
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         flops = BATCH * frames * 2 * (live_nnz + fb_nnz)
         nbytes = BATCH * samples * 4 + BATCH * frames * 224 * 4 + width * (live_nnz + fb_nnz)
-        bms, by = bound_ms(flops, nbytes, peak)
-        bms_all = bound_ms(BATCH * frames * 2 * (all_nnz + fb_nnz),
-                           nbytes + width * (all_nnz - live_nnz), peak)[0]
+        bms_all = bound_s(BATCH * frames * 2 * (all_nnz + fb_nnz),
+                          nbytes + width * (all_nnz - live_nnz), peak) * 1e3
         ops = _operands(DEFAULT_LOGMEL, xs.device, dtype)
         sc, sh = (scale.contiguous(), shift.contiguous()) if affine else _identity_affine(xs.device)
         rec = dict(
@@ -545,7 +535,7 @@ def check_logmel(dev, gen) -> list[dict]:
             same_bits_twice=twice, same_bits_repeated=repeated, same_bits_poisoned=poisoned, ms=ms,
             launch_ms=time_ms(lambda: launch_logmel(xs, ops, sc, sh)),
             plain_ms=time_ms(lambda: logmel_reference(xs, compute_dtype=dtype, **kw)),
-            bound_ms=bms, bound_by=by, bound_ms_all_columns=bms_all, flops=flops, bytes=nbytes,
+            **roofline(flops, nbytes, peak), bound_ms_all_columns=bms_all,
         )
         if floor_err is not None:
             rec["silent_floor_abs_err"] = floor_err
@@ -640,10 +630,8 @@ def reset_launches() -> None:
 # part of the same call)
 CALL_MARKERS = {"logmel": "logmel_bf16_kernel", "convnext_block": "convnext_block_kernel<",
                 "downsample": "seam_kernel<"}
-# a train step's kernels by what they do, by name in a profile: the random
-# draws (``torch.rand``'s kernel), NCCL's all-reduce and all-gather
-STEP_KINDS = {"draws": ("distribution_elementwise",), "all_reduce": ("AllReduce",),
-              "all_gather": ("AllGather",)}
+# every CUDA function of each kernel's call, for the kernel table's device
+# time of a request
 OUR_KERNELS = {"logmel": ("logmel_bf16_kernel",),
                "convnext_block": ("block_pack_kernel", "block_dwln_kernel",
                                   "convnext_block_kernel", "block_reduce_kernel"),
@@ -651,11 +639,9 @@ OUR_KERNELS = {"logmel": ("logmel_bf16_kernel",),
 
 
 def profiled(run) -> dict:
-    """``run()`` under ``torch.profiler``: its wall time, the kernels' summed
-    device time (one stream, so the busy time; the profiler's own cost
-    lengthens the wall time, so the share is a lower bound), the five
-    kernels that take the most, the device time of the port's kernels and
-    the number of calls of each (``CALL_MARKERS``)."""
+    """``run()`` under ``torch.profiler``: the number of calls of each of the
+    port's kernels (``CALL_MARKERS``) and their device time (ms), every
+    log-mel kernel row and the custom ops' calls."""
     import torch
     from torch.autograd import DeviceType
 
@@ -664,26 +650,18 @@ def profiled(run) -> dict:
     # the run as the profiler's one active step, after the kernels that open
     # the window (a trace loses its window's first kernel records)
     with profiler() as prof, active_step(prof):
-        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     # kernel rows only: CPU op rows carry their kernels' time as well
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
             if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")
             and OPENING_KERNEL_NAME not in e.key]
-    device = sum(ms for _, ms, _ in rows)
-    top = sorted(rows, key=lambda r: -r[1])[:5]
     return {
-        "wall_ms": wall, "device_ms": device, "busy_share": device / wall,
-        "top": [[k[:60], round(ms, 3)] for k, ms, _ in top],
-        "ours_ms": {name: sum(ms for k, ms, _ in rows if any(n in k for n in names))
-                    for name, names in OUR_KERNELS.items()},
         "calls": {name: sum(n for k, _, n in rows if marker in k)
                   for name, marker in CALL_MARKERS.items()},
-        "kinds_ms": {kind: sum(ms for k, ms, _ in rows if any(n in k for n in names))
-                     for kind, names in STEP_KINDS.items()},
+        "ours_ms": {name: sum(ms for k, ms, _ in rows if any(n in k for n in names))
+                    for name, names in OUR_KERNELS.items()},
         # every kernel row of either log-mel kernel (bf16 or f32)
         "logmel_rows": [[k, n, round(ms, 4)] for k, ms, n in rows if "logmel" in k],
         # the custom ops' calls, as the dispatcher records them (none in a
@@ -695,11 +673,9 @@ def profiled(run) -> dict:
 
 def bos_ids(model, tasks: list[str]) -> np.ndarray:
     """The (B,) BOS ids of ``tasks``, as ``CoNeTTEModel.forward`` maps them."""
-    from conette_torch.models.conette import tasks_to_bos_ids
+    from conette_torch.models.conette import task_names_to_bos_ids
 
-    datasets = [t.split("_")[0] for t in tasks]
-    sources = ["_".join(t.split("_")[1:]) or None for t in tasks]
-    return tasks_to_bos_ids(model.model_cfg, model.task_token_ids, datasets, sources)
+    return task_names_to_bos_ids(model.model_cfg, model.task_token_ids, tasks)
 
 
 def build_model(work_dir: str) -> str:
@@ -723,7 +699,7 @@ def build_model(work_dir: str) -> str:
     return ckpt
 
 
-def main_path(dev, work_dir: str, smi: str):
+def main_path(dev, work_dir: str):
     """Phase 3: load and serve a full-width model through its captured
     programs; returns the summary and the loaded bf16 model."""
     import torch
@@ -739,22 +715,17 @@ def main_path(dev, work_dir: str, smi: str):
     rng = np.random.default_rng(3)
     tasks = ["clotho", "audiocaps", "macs", "wavcaps_freesound"] * 2
     reset_launches()
-    latencies, outputs, per_request = [], [], []
+    outputs, per_request = [], []
     for r in range(3):
-        clips = make_clips(rng, BATCH, 10.0, 44100)
         before = count_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = model(clips, sr=44100, task=tasks)
-        torch.cuda.synchronize()
-        latencies.append(time.perf_counter() - t0)
+        out = model(make_clips(rng, BATCH, 10.0, 44100), sr=44100, task=tasks)
         per_request.append({k: v - before[k] for k, v in count_launches().items()})
         assert len(out["cands"]) == BATCH and all(isinstance(c, str) for c in out["cands"])
         assert len(out["tags"]) == BATCH and out["tags_probs"].shape == (BATCH, 527)
         assert np.isfinite(out["lprobs"]).all() and np.isfinite(out["tags_probs"]).all()
         outputs.append(out)
-        print(f"  request {r}: {latencies[-1] * 1e3:.1f} ms, {BATCH / latencies[-1]:.2f} clips/s, "
-              f"wrapper launches {per_request[-1]}; cand 0: {out['cands'][0]!r}", flush=True)
+        print(f"  request {r}: wrapper launches {per_request[-1]}; cand 0: {out['cands'][0]!r}",
+              flush=True)
     launches = count_launches()
     # the first request runs each kernel for the encoder graph's warm-up and
     # once in its capture; the others replay the graphs, where no wrapper runs
@@ -763,47 +734,18 @@ def main_path(dev, work_dir: str, smi: str):
 
     # a replayed request: 1 log-mel, 18 block and 3 seam kernel calls
     replay = profiled(lambda: model(make_clips(rng, BATCH, 10.0, 44100), sr=44100, task=tasks))
-    print(f"  replayed request under the profiler: {replay['wall_ms']:.1f} ms wall, "
-          f"{replay['device_ms']:.1f} ms of kernels (busy share {replay['busy_share']:.3f}); "
-          f"kernel calls {replay['calls']}; top: {replay['top']}; the port's kernels (ms): "
-          f"{replay['ours_ms']}", flush=True)
+    print(f"  replayed request under the profiler: kernel calls {replay['calls']}, the port's "
+          f"kernels' device time (ms) {replay['ours_ms']}", flush=True)
     assert replay["calls"] == {"logmel": 1, "convnext_block": 18, "downsample": 3}, replay["calls"]
-    # the profiler lengthens the wall time; against the median warm request
-    # unprofiled (busy_share above is the profiled request's own)
-    replay["busy_share_of_warm_request"] = (replay["device_ms"]
-                                            / (statistics.median(latencies[1:]) * 1e3))
-    print(f"  its {replay['device_ms']:.1f} ms of kernels against the median warm request: busy "
-          f"share {replay['busy_share_of_warm_request']:.3f}", flush=True)
 
     # fewer clips than the programs' rows: padded, replayed, nothing captured
-    # and its stages: host load + resample, encoder, projection + search
     keys = (list(model.preprocessor.graphs.programs), list(model.graphs.programs))
-    small_ms, small_stages = [], []
     for n in (3, 3, 8):
-        clips = make_clips(rng, n, 10.0, 44100)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        small = model(clips, sr=44100, task=tasks[:n])
-        torch.cuda.synchronize()
-        small_ms.append((time.perf_counter() - t0) * 1e3)
+        small = model(make_clips(rng, n, 10.0, 44100), sr=44100, task=tasks[:n])
         assert len(small["cands"]) == n and small["preds"].shape[0] == n, small["preds"].shape
-        t = [time.perf_counter()]
-        wav, lens = model.preprocessor.load_resample(clips, 44100)
-        t.append(time.perf_counter())
-        audio, a_lens, _ = model.preprocessor.encode(wav, lens)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        cfg = model.model_cfg
-        model._generate(audio, a_lens, bos_ids(model, tasks[:n]), model.forbid_rep_mask,
-                        cfg.beam_size, cfg.min_pred_size, cfg.max_pred_size)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        small_stages.append([round((b - a) * 1e3, 2) for a, b in zip(t, t[1:])])
     assert (list(model.preprocessor.graphs.programs), list(model.graphs.programs)) == keys
     assert count_launches() == launches, count_launches()
-    print(f"  requests of 3, 3 and 8 clips replayed the 8-row programs, no capture: "
-          f"{small_ms[0]:.1f}, {small_ms[1]:.1f}, {small_ms[2]:.1f} ms; their stages again "
-          f"(load + resample, encoder, decode; ms): {small_stages}", flush=True)
+    print("  requests of 3, 3 and 8 clips replayed the 8-row programs, no capture", flush=True)
 
     versus = graphs_vs_eager(model, make_clips(rng, BATCH, 10.0, 44100), tasks)
 
@@ -831,41 +773,15 @@ def main_path(dev, work_dir: str, smi: str):
     assert tag_err < 1e-4
     np.testing.assert_allclose(card["lprobs"], cpu["lprobs"], atol=1e-3)
 
-    stages = breakdown(model, make_clips(rng, BATCH, 10.0, 44100), tasks)
-    print("  one request's stages (median of 4, ms): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
-    graphs = graph_records(model)
-    print(f"  graphs: {graphs}", flush=True)
+    guarded = guarded_decode(model, rng, tasks)
 
-    guarded = guarded_decode(model, rng, tasks, smi)
-
-    total = sum(latencies)
     return dict(
-        latency_ms=[x * 1e3 for x in latencies], clips_per_s=3 * BATCH / total, stages_ms=stages,
-        small_requests_ms=small_ms, small_request_stages_ms=small_stages,
-        replayed_request=replay, graphs_vs_eager=versus, graphs=graphs, guarded_decode=guarded,
+        replay_calls=replay["calls"], replay_kernel_device_ms=replay["ours_ms"],
+        graphs_vs_eager=versus, guarded_decode=guarded,
         launches=launches, launches_by_request=per_request, encoder_frame_embs_rel_err=fe_err,
         encoder_clip_abs_err=clip_err, f32_card_vs_cpu_tags_abs_err=tag_err, vocab=vocab,
         cands=[o["cands"] for o in outputs],
     ), model
-
-
-def graph_records(model) -> dict:
-    """Each captured program's key, capture time (its ``capture`` span,
-    ``utils/profiling.py``) and device memory (its private pool and static
-    inputs)."""
-    from conette_torch.utils import profiling
-
-    held = {}
-    for owner, cache in (("encoder", model.preprocessor.graphs), ("model", model.graphs)):
-        for key, nbytes in cache.memory_bytes().items():
-            held[repr(key)] = (owner, nbytes)
-    out = {}
-    for rec in profiling.records():
-        if rec.name == "capture" and rec.attrs["key"] in held:
-            owner, nbytes = held[rec.attrs["key"]]
-            out[f"{owner}:{rec.attrs['key']}"] = {"capture_s": rec.seconds, "memory_mb": nbytes / 1e6}
-    return out
 
 
 def graphs_vs_eager(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
@@ -929,99 +845,11 @@ def graphs_vs_eager(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
     return out
 
 
-# phase 3's guarded decode: caption lengths (EOS included) drawn as the JAX
-# bench draws them from the released checkpoint's Clotho lengths (bench.py,
-# not imported: it imports JAX), forced by an EOS bias from step length - 1
-LEN_MEAN, LEN_STD, LEN_MIN, LEN_MAX = 11.6, 2.6, 5, 18
-LEN_SEED = 7
-EOS_FORCE = 1.0e4
+# phase 3's guarded decode: the clips of a request whose lengths are scripted
 GUARD_CLIPS = (1, 3, 8)
-GUARD_TURNS = 20
-# a spin of ~1 ms at the H100's 1.98 GHz, ahead of each timed replay: longer
-# than the host takes to launch a decode graph
-SPIN_CYCLES = 2_000_000
-# kernels in a body of conditional_node_cost_us: one, and about one decode
-# step's (a 20-step decode replay launches ~6 000)
-NODE_BODY_KERNELS = (1, 300)
 
 
-def target_lengths(n: int) -> np.ndarray:
-    rng = np.random.default_rng(LEN_SEED)
-    return np.clip(np.round(rng.normal(LEN_MEAN, LEN_STD, n)), LEN_MIN, LEN_MAX).astype(np.int32)
-
-
-def eos_schedule(lengths: np.ndarray, max_pred: int) -> np.ndarray:
-    """An EOS bias from step ``length - 1`` on, so that every beam of a clip
-    ends after exactly ``length`` tokens."""
-    steps = np.arange(max_pred)[None, :]
-    return np.where(steps >= lengths[:, None] - 1, EOS_FORCE, 0.0).astype(np.float32)
-
-
-def counted(guard, steps):
-    """``guard``, whose steps also add one to the 0-dim device tensor
-    ``steps`` when they run: the count of the steps that a replay ran."""
-    def run(flag, body):
-        def counted_body():
-            body()
-            steps.add_(1)
-        guard(flag, counted_body)
-    return run
-
-
-def outputs_same_bits(a, b) -> bool:
-    """Whether two programs' outputs (float and integer tensors) have the
-    same bits."""
-    import torch
-
-    return all(same_bits(x, y) if x.is_floating_point() else bool(torch.equal(x, y))
-               for x, y in zip(a, b))
-
-
-def paired_replays_ms(progs: dict, turns: int = GUARD_TURNS) -> dict:
-    """CUDA-event times (ms) of ``turns`` turns, each of which replays every
-    captured program of ``progs`` once (the order reversed every other
-    turn), after one replay each. Each replay is queued behind a spin of
-    ``SPIN_CYCLES`` clock cycles, so that the event times hold the card's
-    work and not the host's launch of the graph, and is waited for before
-    the next: replays queued back to back ran 0.3-0.4 ms slower in second
-    place. A program's speed on the card shifts between stretches of a
-    process (the decode replay sits near 21 or near 25 ms), so the programs
-    are compared turn by turn: each one's times, minimum and median, the
-    median host time of its ``graph.replay()`` call (``launch_ms``), and
-    for each program after the first the medians over the turns of its time
-    over the first's (``ratio_median``) and less the first's
-    (``diff_median_ms``)."""
-    import torch
-
-    names = list(progs)
-    for name in names:
-        progs[name].graph.replay()
-    torch.cuda.synchronize()
-    times: dict = {name: [] for name in names}
-    launch: dict = {name: [] for name in names}
-    for turn in range(turns):
-        for name in names if turn % 2 == 0 else names[::-1]:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
-            start.record()
-            t0 = time.perf_counter()
-            progs[name].graph.replay()
-            launch[name].append((time.perf_counter() - t0) * 1e3)
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end))
-    out = {"ms": times, "min": {n: min(t) for n, t in times.items()},
-           "median": {n: statistics.median(t) for n, t in times.items()},
-           "launch_ms": {n: statistics.median(t) for n, t in launch.items()}}
-    first = times[names[0]]
-    out["ratio_median"] = {n: statistics.median(b / a for a, b in zip(first, times[n]))
-                           for n in names[1:]}
-    out["diff_median_ms"] = {n: statistics.median(b - a for a, b in zip(first, times[n]))
-                             for n in names[1:]}
-    return out
-
-
-def guarded_decode(model, rng: np.random.Generator, tasks: list[str], smi: str) -> dict:
+def guarded_decode(model, rng: np.random.Generator, tasks: list[str]) -> dict:
     """Phase 3's early exit: the projection and beam search captured with
     each step under a graph *if* node (``decoding/guard.py``) against the
     same program with every step run, on one request's encoder outputs.
@@ -1033,11 +861,10 @@ def guarded_decode(model, rng: np.random.Generator, tasks: list[str], smi: str) 
     fixed-step program's bits (best and global tokens and lprobs), also
     when each replay follows one at full length, and when the guarded
     program is captured on memory poisoned with 0xFF and with 0x00; a
-    counting twin (``counted``) runs exactly the longest scripted length
-    among the real rows. Each program holds ``max_pred_size`` conditional
-    nodes. The device time of a replay, fixed-step and guarded in
-    ``GUARD_TURNS`` turns (``paired_replays_ms``), at each size and at full
-    length (random weights: every beam runs 20 steps).
+    counting twin (``decoding/guard.py::counted``) runs exactly the longest
+    scripted length among the real rows, and ``max_pred_size`` at full
+    length (random weights: every beam runs 20 steps). Each guarded program
+    holds ``max_pred_size`` conditional nodes.
 
     (b) The model's own programs: the request decode (``_generate``, beam 3
     and greedy), the corpus batch (``serving.caption_batch``) and
@@ -1045,11 +872,10 @@ def guarded_decode(model, rng: np.random.Generator, tasks: list[str], smi: str) 
     they are (``conditional_step``) and with ``every_step`` in its place
     (``model_programs_guard``): the
     same bits at full length and with the classifier's EOS bias raised by
-    ``EOS_FORCE`` (every caption ends at ``min_pred_size``); the request
-    decode's replay time, guarded against fixed, at full length."""
+    ``EOS_FORCE`` (every caption ends at ``min_pred_size``)."""
     import torch
 
-    from conette_torch.decoding.guard import every_step
+    from conette_torch.decoding.guard import counted, every_step
     from conette_torch.graphs import REQUEST_BATCH, GraphCache, conditional_step
     from conette_torch.models.conette import encode_audio, forward_generate
 
@@ -1099,23 +925,14 @@ def guarded_decode(model, rng: np.random.Generator, tasks: list[str], smi: str) 
             counted_out = run("counted", xs)
             ran = int(steps)
             expect = max_p if n == "full" else int(lengths.max())
-            r = {"same_bits": outputs_same_bits(want, got),
-                 "counted_same_bits": outputs_same_bits(want, counted_out),
-                 "steps_run": ran, "steps_expected": expect,
-                 "lengths": [int(x) for x in (got[2] != cfg.pad_id).sum(-1).max(-1).values]}
-            # the device time of a replay on these inputs (both programs
-            # hold them from their last call), in turns
-            r["replay"] = t = paired_replays_ms(
-                {kind: caches[kind].programs[(REQUEST_BATCH, "scripted", name)]
-                 for kind in ("fixed", "guarded")})
-            rec[str(n)] = r
+            rec[str(n)] = r = {
+                "same_bits": outputs_same_bits(want, got),
+                "counted_same_bits": outputs_same_bits(want, counted_out),
+                "steps_run": ran, "steps_expected": expect,
+                "lengths": [int(x) for x in (got[2] != cfg.pad_id).sum(-1).max(-1).values]}
             print(f"  guarded decode, {name} memory, {n} clips: lengths {r['lengths']}, steps "
                   f"run {ran} (expected {expect}), same bits {r['same_bits']} (counting twin "
-                  f"{r['counted_same_bits']}); replay in {GUARD_TURNS} turns, min "
-                  f"{t['min']} ms, median {t['median']} ms, guarded / fixed-step median of the "
-                  f"turns {t['ratio_median']['guarded']:.4f} "
-                  f"({t['diff_median_ms']['guarded']:+.4f} ms); host launch {t['launch_ms']} ms",
-                  flush=True)
+                  f"{r['counted_same_bits']})", flush=True)
             assert r["same_bits"] and r["counted_same_bits"] and ran == expect, r
         nodes = {k: c.programs[(REQUEST_BATCH, "scripted", name)].conditional_nodes
                  for k, c in caches.items()}
@@ -1134,58 +951,7 @@ def guarded_decode(model, rng: np.random.Generator, tasks: list[str], smi: str) 
         assert rec["same_bits_poisoned"], poisoned
         out[name] = rec
 
-    out["model_programs"] = guarded_model_programs(model, wav, lens, bos, smi)
-    out["node_cost_us"] = cost = conditional_node_cost_us(dev, max_p)
-    for kernels, c in cost.items():
-        print(f"  {max_p} conditional nodes around {kernels} one-element adds each: "
-              f"{c['per_node_us']:.2f} us a node over the same adds unguarded (median of the "
-              f"turns' differences; min {c['min_us']} us, median {c['median_us']} us, host "
-              f"launch {c['launch_us']} us) on {smi}", flush=True)
-    out["card"] = smi
-    table = {name: {n: {"guarded_min_ms": out[name][n]["replay"]["min"]["guarded"],
-                        "fixed_min_ms": out[name][n]["replay"]["min"]["fixed"],
-                        "guarded_median_ms": out[name][n]["replay"]["median"]["guarded"],
-                        "fixed_median_ms": out[name][n]["replay"]["median"]["fixed"],
-                        "ratio_median": out[name][n]["replay"]["ratio_median"]["guarded"],
-                        "launch_ms": out[name][n]["replay"]["launch_ms"],
-                        "steps": out[name][n]["steps_run"]}
-                    for n in [str(c) for c in GUARD_CLIPS] + ["full"]}
-             for name in ("float32", "bfloat16")}
-    out["replay_ms"] = table
-    print(f"  decode replay in {GUARD_TURNS} turns of fixed-step and guarded (CUDA events, ms), "
-          f"by memory dtype and clips: {json.dumps(table)} on {smi}", flush=True)
-    return out
-
-
-def conditional_node_cost_us(dev, nodes: int) -> dict:
-    """What ``nodes`` *if* nodes cost a replay, for bodies of each count of
-    ``NODE_BODY_KERNELS`` one-element adds: a program of ``nodes`` bodies,
-    each under ``conditional_step`` on a set flag, against the same adds
-    unguarded, in ``GUARD_TURNS`` turns (``paired_replays_ms``)."""
-    import torch
-
-    from conette_torch.decoding.guard import every_step
-    from conette_torch.graphs import GraphCache, conditional_step
-
-    def program(guard, kernels):
-        def fn(x):
-            flag = torch.ones((), dtype=torch.bool, device=x.device)
-            for _ in range(nodes):
-                guard(flag, lambda: [x.add_(1) for _ in range(kernels)])
-            return (x,)
-        return fn
-
-    out = {}
-    for kernels in NODE_BODY_KERNELS:
-        cache = GraphCache(2)
-        x = torch.zeros((), device=dev)
-        for kind, guard in (("unguarded", every_step), ("guarded", conditional_step)):
-            cache.run((kind,), program(guard, kernels), (x,), dev)
-        t = paired_replays_ms({kind: cache.programs[(kind,)] for kind in ("unguarded", "guarded")})
-        out[kernels] = {"min_us": {k: v * 1e3 for k, v in t["min"].items()},
-                        "median_us": {k: v * 1e3 for k, v in t["median"].items()},
-                        "launch_us": {k: v * 1e3 for k, v in t["launch_ms"].items()},
-                        "per_node_us": t["diff_median_ms"]["guarded"] * 1e3 / nodes}
+    out["model_programs"] = guarded_model_programs(model, wav, lens, bos)
     return out
 
 
@@ -1207,7 +973,7 @@ def model_programs_guard(guard):
         model_module.conditional_step, serving.conditional_step = saved
 
 
-def guarded_model_programs(model, wav, lens, bos, smi: str) -> dict:
+def guarded_model_programs(model, wav, lens, bos) -> dict:
     """Part (b) of :func:`guarded_decode`: the model's request decode,
     corpus batch and sharded caption function, guarded against fixed-step."""
     import torch
@@ -1274,16 +1040,6 @@ def guarded_model_programs(model, wav, lens, bos, smi: str) -> dict:
             caches["guarded"].programs[k].conditional_nodes == cfg.max_pred_size
             for k in decode_keys), nodes["guarded"]
         assert all(n == 0 for n in nodes["fixed"].values()), nodes["fixed"]
-        # the request decode at beam 3 and full length (random weights; both
-        # programs hold the request's inputs), in turns
-        key = next(k for k in caches["fixed"].programs if k[1] == "generate" and k[4] == 3)
-        out["request_beam3_full_replay"] = t = paired_replays_ms(
-            {kind: caches[kind].programs[key] for kind in ("fixed", "guarded")})
-        print(f"  request decode replay at beam 3, full length (random weights), in "
-              f"{GUARD_TURNS} turns: min {t['min']} ms, median {t['median']} ms, guarded / "
-              f"fixed-step median of the turns {t['ratio_median']['guarded']:.4f} "
-              f"({t['diff_median_ms']['guarded']:+.4f} ms), host launch {t['launch_ms']} ms "
-              f"on {smi}", flush=True)
     finally:
         model.graphs = saved
     return out
@@ -1295,7 +1051,6 @@ def guarded_model_programs(model, wav, lens, bos, smi: str) -> dict:
 CORPUS_SECONDS = (0.8, 2.5, 4.5, 9.5)
 CORPUS_FILES = 8 * len(CORPUS_SECONDS)
 CORPUS_TASKS = ("clotho", "audiocaps", "macs", "wavcaps_freesound")
-CORPUS_RUNS = 3
 
 
 def write_corpus(work_dir: str) -> tuple[list[str], list[str], dict[int, int]]:
@@ -1322,13 +1077,8 @@ def write_corpus(work_dir: str) -> tuple[list[str], list[str], dict[int, int]]:
 
 def serve_corpus(model, work_dir: str) -> dict:
     """Phase 4: write the corpus, warm the buckets up (capturing their
-    programs), caption it ``CORPUS_RUNS`` times, then once more under the
-    profiler, which counts the kernel calls of the replayed batches; the
-    host's file decode and resample inside each call (every
-    ``load_resample``: the bucket pass for FLAC, then each batch's loads)
-    is timed apart from the call."""
-    import torch
-
+    programs), then caption it under the profiler, which counts the kernel
+    calls of the replayed batches."""
     from conette_torch.serving import CaptionResult, caption_corpus, warmup
 
     paths, tasks, buckets = write_corpus(work_dir)
@@ -1336,55 +1086,23 @@ def serve_corpus(model, work_dir: str) -> dict:
     assert len(buckets) >= 3 and all(count % BATCH == 0 for count in buckets.values()), buckets
 
     reset_launches()
-    t0 = time.perf_counter()
     warmup(model, bucket_seconds=sorted(b // 32000 for b in buckets), batch_size=BATCH)
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-
-    pre = model.preprocessor
-    load = pre.load_resample
-    decode = [0.0]
-
-    def timed_load(*args, **kwargs):
-        t = time.perf_counter()
-        out = load(*args, **kwargs)
-        decode[0] += time.perf_counter() - t
-        return out
-
-    pre.load_resample = timed_load  # instance attribute, removed below
-    runs = []
-    try:
-        for _ in range(CORPUS_RUNS):
-            decode[0] = 0.0
-            t0 = time.perf_counter()
-            results = caption_corpus(model, paths, task=tasks, batch_size=BATCH)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            assert [r.fname for r in results] == paths
-            assert [r.task for r in results] == tasks
-            assert all(isinstance(r, CaptionResult) and isinstance(r.caption, str)
-                       and np.isfinite(r.lprob) for r in results)
-            runs.append(dict(seconds=seconds, clips_per_s=len(paths) / seconds,
-                             host_decode_s=decode[0], rest_s=seconds - decode[0]))
-    finally:
-        del pre.load_resample
     launches = count_launches()  # the warm-up's: every batch since replays its program
-    prof = profiled(lambda: caption_corpus(model, paths, task=tasks, batch_size=BATCH))
+    results = []
+    prof = profiled(lambda: results.extend(caption_corpus(model, paths, task=tasks,
+                                                          batch_size=BATCH)))
+    assert [r.fname for r in results] == paths
+    assert [r.task for r in results] == tasks
+    assert all(isinstance(r, CaptionResult) and isinstance(r.caption, str)
+               and np.isfinite(r.lprob) for r in results)
     want = {"logmel": n_batches, "convnext_block": 18 * n_batches, "downsample": 3 * n_batches}
     assert prof["calls"] == want, (prof["calls"], want)
     assert all(v > 0 for v in launches.values()), launches
-    median = statistics.median(r["clips_per_s"] for r in runs)
     print(f"  {len(paths)} files in {len(buckets)} buckets, {n_batches} full batches of {BATCH}: "
-          f"warmup {warmup_s:.2f} s (wrapper launches {launches}); caption_corpus "
-          + ", ".join(f"{r['seconds']:.2f} s (host decode {r['host_decode_s']:.2f} s)" for r in runs)
-          + f", median {median:.2f} clips/s; kernel calls of a profiled call {prof['calls']}; "
-          f"first: {results[0].caption!r} ({results[0].task})", flush=True)
-    graphs = {k: v for k, v in graph_records(model).items() if "corpus" in k}
-    print(f"  corpus graphs: {graphs}", flush=True)
+          f"warmup's wrapper launches {launches}; kernel calls of a profiled caption_corpus "
+          f"{prof['calls']}; first: {results[0].caption!r} ({results[0].task})", flush=True)
     return dict(paths=paths, tasks=tasks, files=len(paths), buckets=len(buckets), batches=n_batches,
-                warmup_s=warmup_s,
-                graphs=graphs, runs=runs, clips_per_s_median=median, launches=launches,
-                replay_calls=prof["calls"], profiled_call_busy_share=prof["busy_share"],
+                launches=launches, replay_calls=prof["calls"],
                 captions=[[r.task, r.caption, r.lprob] for r in results])
 
 
@@ -1407,12 +1125,8 @@ def export_phase(model, work_dir: str) -> dict:
 
     dev = model.device
     art = os.path.join(work_dir, "export")
-    t0 = time.perf_counter()
     save_exported(model, art, batch_size=BATCH, clip_seconds=10.0)
-    export_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     cap = ExportedCaptioner(art)
-    load_s = time.perf_counter() - t0
     logmel_dtypes = [str(n.args[-1]) for n in cap.program.graph.nodes
                      if "conette_torch.logmel" in str(n.target)]
     tasks = ["clotho", "audiocaps", "macs", "wavcaps_freesound"] * 2
@@ -1442,10 +1156,8 @@ def export_phase(model, work_dir: str) -> dict:
     clip_err = float((clip - live["clip_probs"]).abs().max())
     lprob_err = float((avg - want[1]).abs().max())
     f32_gap = float((f32_clip - live["clip_probs"]).abs().max())
-    size_mb = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art)) / 1e6
-    print(f"  exported at batch {BATCH} x 10 s in {export_s:.1f} s ({size_mb:.1f} MB), loaded in "
-          f"{load_s:.1f} s; log-mel nodes at {logmel_dtypes}; replay {prof['wall_ms']:.1f} ms, "
-          f"custom-op calls {prof['op_calls']}, wrapper launches {launches}; tokens equal to the "
+    print(f"  exported at batch {BATCH} x 10 s, loaded; log-mel nodes at {logmel_dtypes}; "
+          f"replay's custom-op calls {prof['op_calls']}, wrapper launches {launches}; tokens equal to the "
           f"live graph path: {equal}, clip_probs max abs diff {clip_err:.2e} (the f32 encoder: "
           f"{f32_gap:.2e}), avg lprobs {lprob_err:.2e}", flush=True)
     for name, p in (("the replay", prof), ("the eager bf16 encoder", eager)):
@@ -1460,134 +1172,11 @@ def export_phase(model, work_dir: str) -> dict:
     # the bit-equal clip probabilities above: its kernel row may be missing
     assert {k: prof["calls"][k] for k in ("convnext_block", "downsample")} == {
         "convnext_block": 18, "downsample": 3}, prof["calls"]
-    return dict(export_s=export_s, load_s=load_s, size_mb=size_mb, replay_ms=prof["wall_ms"],
-                logmel_dtypes=logmel_dtypes, op_calls=prof["op_calls"], launches=launches,
+    return dict(logmel_dtypes=logmel_dtypes, op_calls=prof["op_calls"], launches=launches,
                 kernel_calls=prof["calls"], logmel_rows=prof["logmel_rows"],
                 eager_encoder_calls=eager["calls"],
                 tokens_equal=equal, clip_probs_max_abs_diff=clip_err,
-                avg_lprobs_max_abs_diff=lprob_err, f32_encoder_clip_gap=f32_gap,
-                busy_share=prof["busy_share"])
-
-
-def breakdown(model, clips: list[np.ndarray], tasks: list[str]) -> dict:
-    """Host clock around each stage of one request, synchronised: host
-    load + resample; the bf16 encoder through its graph and eagerly; the
-    projection + beam search through its graph and eagerly (the same f32
-    computation); the public API's default f32 encoder (the plain
-    frontend) through its graph and eagerly. Graph and eager run in
-    alternating order in the same loop. The bf16 encoder's graph stage is
-    split: ``encoder_copy_in`` copies the waveforms and lengths into the
-    graph's inputs as a request does (through its pinned staging), of which
-    ``encoder_stage_host`` is the host's copy into the staging buffers
-    (``encoder_stage_host_numpy`` the same by ``np.copyto``, timed only);
-    ``encoder_copy_in_pageable`` copies them straight from pageable memory
-    (timed only: that copy waits for the stream); ``*_replay`` is the device
-    time of a replay alone (CUDA events) and ``*_replay_host`` the host
-    clock of the replay call; ``encoder_copy_out`` copies the outputs'
-    rows. ``encoder_eager_copy_in`` is the eager path's copy of the same
-    arrays."""
-    import torch
-
-    from conette_torch.huggingface.preprocessor import CoNeTTEPreprocessor
-    from conette_torch.models.conette import encode_audio, forward_generate
-    from conette_torch.models.convnext import convnext_apply
-
-    dev = model.device
-    cfg = model.model_cfg
-    pre = model.preprocessor
-    bos = torch.from_numpy(bos_ids(model, tasks)).to(dev)
-    f32_pre = CoNeTTEPreprocessor(model.encoder_params, device=dev, compute_dtype=torch.float32)
-    times: dict[str, list[float]] = {k: [] for k in (
-        "host_load_resample", "encoder", "encoder_copy_in", "encoder_stage_host",
-        "encoder_stage_host_numpy", "encoder_copy_in_pageable", "encoder_replay",
-        "encoder_replay_host", "encoder_copy_out", "encoder_eager",
-        "encoder_eager_copy_in", "encoder_f32", "encoder_f32_replay", "encoder_f32_replay_host",
-        "encoder_f32_eager", "decoder", "decoder_replay", "decoder_replay_host",
-        "decoder_eager")}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    def last(cache):
-        return next(reversed(cache.programs.values()))  # the program used last
-
-    def replay(name, cache):
-        prog = last(cache)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        t0 = time.perf_counter()
-        prog.graph.replay()
-        times[name + "_host"].append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        end.synchronize()
-        times[name].append(start.elapsed_time(end))
-
-    def copy_in(wav, lens):
-        with torch.inference_mode():
-            last(pre.graphs)._copy_in((wav, lens))
-
-    def stage_host(wav, lens, numpy=False):
-        with torch.inference_mode():
-            for stage, x in zip(last(pre.graphs).staging, (wav, lens)):
-                if numpy:
-                    np.copyto(stage.numpy(), x)
-                else:
-                    stage.copy_(torch.from_numpy(x))
-
-    def copy_in_pageable(wav, lens):
-        with torch.inference_mode():
-            for dst, x in zip(last(pre.graphs).static_inputs, (wav, lens)):
-                dst.copy_(torch.from_numpy(x))
-
-    def copy_out():
-        with torch.inference_mode():
-            return [o[:BATCH].clone() for o in last(pre.graphs).outputs]
-
-    def eager_encoder(wav, lens, dtype):
-        with torch.inference_mode():
-            return convnext_apply(model.encoder_params, torch.from_numpy(wav).to(dev),
-                                  torch.from_numpy(lens).to(dev), compute_dtype=dtype)
-
-    def eager_decoder(audio, a_lens):
-        with torch.inference_mode():
-            memory, pad = encode_audio(model.params, cfg, audio, a_lens)
-            return forward_generate(model.params, cfg, memory, pad, bos,
-                                    forbid_rep_mask=model.forbid_rep_mask)
-
-    for i in range(5):  # the first round captures the f32 encoder: not kept
-        wav, lens = timed("host_load_resample", lambda: pre.load_resample(clips, 44100))
-        order = (False, True) if i % 2 else (True, False)
-        for graph in order:
-            if graph:
-                audio, a_lens, _ = timed("encoder", lambda: pre.encode(wav, lens))
-                timed("encoder_copy_in", lambda: copy_in(wav, lens))
-                replay("encoder_replay", pre.graphs)
-                timed("encoder_copy_out", copy_out)
-                timed("encoder_stage_host", lambda: stage_host(wav, lens))
-                timed("encoder_stage_host_numpy", lambda: stage_host(wav, lens, numpy=True))
-                timed("encoder_copy_in_pageable", lambda: copy_in_pageable(wav, lens))
-                timed("encoder_f32", lambda: f32_pre.encode(wav, lens))
-                replay("encoder_f32_replay", f32_pre.graphs)
-            else:
-                timed("encoder_eager_copy_in",
-                      lambda: (torch.from_numpy(wav).to(dev), torch.from_numpy(lens).to(dev)))
-                timed("encoder_eager", lambda: eager_encoder(wav, lens, torch.bfloat16))
-                timed("encoder_f32_eager", lambda: eager_encoder(wav, lens, torch.float32))
-        for graph in order:
-            if graph:
-                timed("decoder", lambda: model._generate(
-                    audio, a_lens, bos, model.forbid_rep_mask, cfg.beam_size, cfg.min_pred_size,
-                    cfg.max_pred_size))
-                replay("decoder_replay", model.graphs)
-            else:
-                timed("decoder_eager", lambda: eager_decoder(audio, a_lens))
-    return {k: statistics.median(v[1:]) for k, v in times.items()}
+                avg_lprobs_max_abs_diff=lprob_err, f32_encoder_clip_gap=f32_gap)
 
 
 # phase 6: the training corpus (10 s clips: 31 frames of 768), as packs of
@@ -1709,12 +1298,10 @@ def step_card_vs_cpu(model_cfg) -> dict:
     return res
 
 
-def step_timing(model_cfg, aug_fn) -> dict:
+def loss_falls(model_cfg, aug_fn) -> list[float]:
     """The production step at full width on the card (dropout, mixup with
-    drawn λ and pairing, SpecAugmentRatio on the embeddings, clip 1, AdamW):
-    CUDA events around each of 10 steps after a warm-up step, the median,
-    samples/s and the peak device memory; then 8 steps on one repeated
-    batch with the optimizer live, whose loss must fall."""
+    drawn λ and pairing, SpecAugmentRatio on the embeddings, clip 1, AdamW)
+    over 8 steps on one repeated batch: its loss must fall."""
     import torch
 
     from conette_torch.models.conette import conette_init
@@ -1728,50 +1315,18 @@ def step_timing(model_cfg, aug_fn) -> dict:
     state = step.init_train_state(params, opt)
     fn = step.make_train_step(model_cfg, grad_clip_norm=1.0)
     gen, aug_gen = torch.Generator(dev).manual_seed(32), torch.Generator(dev).manual_seed(33)
-    rng = np.random.default_rng(34)
-    batches = []
-    for _ in range(11):
-        b = {k: torch.from_numpy(v).pin_memory() for k, v in train_batch(model_cfg, rng).items()}
-        batches.append(b)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(model_cfg, np.random.default_rng(34)).items()}
 
-    def one(b):
-        tb = {k: v.to(dev, non_blocking=True) for k, v in b.items()}
-        tb["audio"] = aug_fn(aug_gen, tb["audio"], time_valid=tb["audio_lens"])
-        return fn(state, tb, gen)[1]
+    def one():
+        tb = dict(batch, audio=aug_fn(aug_gen, batch["audio"], time_valid=batch["audio_lens"]))
+        return float(fn(state, tb, gen)[1]["train/loss"])
 
-    one(batches[0])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    events, issue = [], []
-    for b in batches[1:]:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        one(b)
-        issue.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    times = [a.elapsed_time(e) for a, e in events]
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    med = statistics.median(times)
-    # one step under the profiler: its kernels' summed device time against
-    # the host's time to issue a step (the step's own Python and dispatch)
-    prof = profiled(lambda: one(batches[1]))
-    losses = [float(one(batches[0])["train/loss"]) for _ in range(8)]
-    print(f"  training step at batch {BSIZE} (production settings): median {med:.2f} ms over "
-          f"{len(times)} steps (min {min(times):.2f}, max {max(times):.2f}), "
-          f"{BSIZE / med * 1e3:.0f} samples/s, peak device memory {peak:.0f} MiB; the host issues a "
-          f"step in {statistics.median(issue):.2f} ms (median); a profiled step: "
-          f"{prof['device_ms']:.2f} ms of kernels in {prof['wall_ms']:.2f} ms, top {prof['top']}; "
-          f"{threading.active_count()} threads alive; loss on one repeated batch over 8 steps: "
-          f"{[round(x, 4) for x in losses]}", flush=True)
+    losses = [one() for _ in range(8)]
+    print(f"  training step at batch {BSIZE} (production settings), loss on one repeated batch over "
+          f"8 steps: {[round(x, 4) for x in losses]}", flush=True)
     assert losses[-1] < losses[0] and np.mean(losses[-3:]) < np.mean(losses[:3]), losses
-    return {"step_ms": times, "median_step_ms": med, "samples_per_s": BSIZE / med * 1e3,
-            "issue_ms": issue, "profiled_step_device_ms": prof["device_ms"],
-            "profiled_step_wall_ms": prof["wall_ms"], "profiled_step_top": prof["top"],
-            "threads": threading.active_count(), "peak_memory_mib": peak,
-            "repeated_batch_losses": losses}
+    return losses
 
 
 def training_phase(work_dir: str) -> dict:
@@ -1784,13 +1339,9 @@ def training_phase(work_dir: str) -> dict:
     from conette_torch.models.conette import ConetteConfig
     from conette_torch.train.main import _spec_aug_fn, main_train
 
-    t0 = time.perf_counter()
     hdf_root = os.path.join(work_dir, "hdf")
-    packs = pack_corpus(hdf_root)
-    pack_s = time.perf_counter() - t0
-    print(f"  packed {TRAIN_BATCHES * BSIZE} train and 2 x {EVAL_ITEMS} eval items in "
-          f"{pack_s:.1f} s ({sum(os.path.getsize(p) for p in packs.values()) / 1e6:.0f} MB)",
-          flush=True)
+    pack_corpus(hdf_root)
+    print(f"  packed {TRAIN_BATCHES * BSIZE} train and 2 x {EVAL_ITEMS} eval items", flush=True)
     from conette_torch.config import load_config
 
     argv = ["expt=hp_clotho_v2", "ckpts.monitor=val/loss", "ckpts.fallback_monitor=val/loss",
@@ -1810,26 +1361,18 @@ def training_phase(work_dir: str) -> dict:
     vocab = 4000 + 4 + len(pl["task_names"])
     model_cfg = ConetteConfig(vocab_size=vocab, task_names=tuple(pl["task_names"]))
     card_vs_cpu = step_card_vs_cpu(model_cfg)
-    timing = step_timing(model_cfg, _spec_aug_fn(cfg))
+    losses = loss_falls(model_cfg, _spec_aug_fn(cfg))
 
     for cache, key in ((bert_score._CACHE, "embed"), (fense._CACHE, "model")):
         cache[key] = None  # no model weights for these metrics here: never fetch them
-    t0 = time.perf_counter()
     out = main_train(argv)
-    train_s = time.perf_counter() - t0
     fit = out["fit"]
     run_dir = out["run_dir"]
     best = os.path.join(run_dir, "checkpoints", "best")
     artifacts = sorted(os.listdir(run_dir))
-    wait_share = fit.batch_wait_s / sum(fit.epoch_train_s)
-    fit_rate = fit.global_step * BSIZE / sum(fit.epoch_train_s)
-    print(f"  main_train: {train_s:.1f} s wall, {fit.global_step} steps ({fit_rate:.0f} samples/s "
-          "over the training passes), epochs "
-          f"{[round(x, 2) for x in fit.epoch_s]} s (training passes "
-          f"{[round(x, 2) for x in fit.epoch_train_s]} s), waiting on the host's batch "
-          f"{fit.batch_wait_s:.2f} s ({wait_share:.3f} of the passes); best val/loss "
-          f"{out['best']:.4f}; test {next(iter(out['test'].values()))['cider_d']:.4f} CIDEr-D; "
-          f"run dir {artifacts}", flush=True)
+    print(f"  main_train: {fit.global_step} steps; best val/loss {out['best']:.4f}; test "
+          f"{next(iter(out['test'].values()))['cider_d']:.4f} CIDEr-D; run dir {artifacts}",
+          flush=True)
     assert fit.global_step == 2 * TRAIN_BATCHES and np.isfinite(out["best"])
     assert os.path.isfile(os.path.join(best, "params.npz")), best
     for name in ("tokenizer.json", "vocab.csv", "hparams.yaml", "metrics.yaml", "endfile.txt"):
@@ -1872,10 +1415,8 @@ def training_phase(work_dir: str) -> dict:
     assert eager_launches == {"logmel": 1, "convnext_block": 18, "downsample": 3}, eager_launches
     assert clip_err <= 1e-6, clip_err
     assert len(first["cands"]) == BATCH and np.isfinite(first["lprobs"]).all()
-    return dict(pack_s=pack_s, card_vs_cpu=card_vs_cpu, timing=timing, main_train_s=train_s,
-                epoch_s=fit.epoch_s, epoch_train_s=fit.epoch_train_s, batch_wait_s=fit.batch_wait_s,
-                fit_samples_per_s=fit_rate,
-                batch_wait_share=wait_share, best_val_loss=out["best"], test=out["test"],
+    return dict(card_vs_cpu=card_vs_cpu, repeated_batch_losses=losses,
+                best_val_loss=out["best"], test=out["test"],
                 artifacts=artifacts, launches=launches, replay_calls=replay["calls"],
                 eager_encoder_launches=eager_launches, replay_vs_eager_clip_abs_err=clip_err,
                 graphs_vs_eager=versus, cands=first["cands"])
@@ -1951,38 +1492,6 @@ def write_prepare_corpus(root: str) -> dict:
     return out
 
 
-class MethodTimer:
-    """Host seconds spent inside each wrapped function while active
-    (``encode`` ends in a synchronise, so it holds its device time too)."""
-
-    def __init__(self, targets: dict) -> None:
-        self.targets = targets  # {label: (owner, attribute, synchronise)}
-        self.seconds = dict.fromkeys(targets, 0.0)
-        self.saved = {}
-
-    def __enter__(self):
-        import torch
-
-        for label, (owner, attr, sync) in self.targets.items():
-            fn = getattr(owner, attr)
-            self.saved[label] = fn
-
-            def timed(*args, _fn=fn, _label=label, _sync=sync, **kwargs):
-                t0 = time.perf_counter()
-                out = _fn(*args, **kwargs)
-                if _sync:
-                    torch.cuda.synchronize()
-                self.seconds[_label] += time.perf_counter() - t0
-                return out
-
-            setattr(owner, attr, timed)
-        return self
-
-    def __exit__(self, *exc):
-        for label, (owner, attr, _) in self.targets.items():
-            setattr(owner, attr, self.saved[label])
-
-
 def native_loader_check(audio_dir: str, names: list[str]) -> dict:
     """Build the native loader, then decode and resample 32 WAVs with
     ``load_batch`` and with the numpy route (decode, resample, mean)."""
@@ -1990,134 +1499,30 @@ def native_loader_check(audio_dir: str, names: list[str]) -> dict:
     from conette_torch.ops.resample import resample_numpy
     from conette_torch.utils.audio_io import load_audio
 
-    t0 = time.perf_counter()
     path = loader.library_path()
     loader.build(path)
     loader.library()
-    build_s = time.perf_counter() - t0
     paths = [os.path.join(audio_dir, n) for n in names if n.endswith(".wav")][:32]
-    t0 = time.perf_counter()
     native = loader.load_batch(paths, 32_000)
-    native_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     plain = []
     for p in paths:
         wav, sr = load_audio(p)
         plain.append(resample_numpy(wav, sr, 32_000).mean(axis=0))
-    numpy_s = time.perf_counter() - t0
     kinds = sorted({(loader.wav_info(p)[0], loader.wav_info(p)[1]) for p in paths})
     err = max(float(np.abs(a - b).max()) for a, b in zip(native, plain))
     seconds = sum(len(a) for a in native) / 32_000
-    print(f"  native loader: built in {build_s:.2f} s ({path.name}); {len(paths)} WAVs "
-          f"({seconds:.0f} s of audio; (rate, channels) {kinds}) through load_batch in "
-          f"{native_s:.3f} s, through numpy in {numpy_s:.3f} s; max abs diff {err:.2e} "
+    print(f"  native loader ({path.name}): {len(paths)} WAVs ({seconds:.0f} s of audio; (rate, "
+          f"channels) {kinds}) through load_batch against numpy: max abs diff {err:.2e} "
           f"(tol 2e-5)", flush=True)
     assert len(kinds) == 6 and [len(a) for a in native] == [len(b) for b in plain]
     assert err <= 2e-5, err
-    return dict(build_s=build_s, files=len(paths), audio_s=seconds, load_batch_s=native_s,
-                numpy_s=numpy_s, max_abs_err=err)
-
-
-def random_batch_norms(tree, rng: np.random.Generator):
-    """A numpy PANN tree with every batch norm drawn from ``rng`` (weight
-    and running variance in [0.5, 1.5), bias and running mean N(0, 0.1));
-    other leaves as they are."""
-    if isinstance(tree, dict):
-        if "running_var" in tree:
-            n = len(tree["weight"])
-            return {"weight": rng.uniform(0.5, 1.5, n).astype(np.float32),
-                    "bias": (0.1 * rng.standard_normal(n)).astype(np.float32),
-                    "running_mean": (0.1 * rng.standard_normal(n)).astype(np.float32),
-                    "running_var": rng.uniform(0.5, 1.5, n).astype(np.float32)}
-        return {k: random_batch_norms(v, rng) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [random_batch_norms(v, rng) for v in tree]
-    return tree
-
-
-def without_conv_biases(tree):
-    """A numpy PANN tree with every 2-D conv's bias zero, as the converter
-    makes it from the reference's bias-free convs."""
-    if isinstance(tree, dict):
-        if np.ndim(tree.get("weight")) == 4:
-            return dict(tree, bias=np.zeros_like(tree["bias"]))
-        return {k: without_conv_biases(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [without_conv_biases(v) for v in tree]
-    return tree
-
-
-def reference_pann_state(tree) -> dict:
-    """The reference's torch state dict of a numpy PANN tree (the inverse
-    of ``convert_pann``, for every name of ``PANN_ZOO_NAMES``): 2-D conv
-    biases dropped (the reference's convs have none), with the BN counters
-    and a frontend buffer that the converter skips."""
-    sd = {"spectrogram_extractor.stft.conv_real.weight": np.zeros((513, 1, 1024), np.float32)}
-
-    def put(prefix: str, p) -> None:
-        if "running_var" in p:  # BatchNorm
-            sd.update({f"{prefix}.{k}": np.asarray(v) for k, v in p.items()})
-            sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
-        elif "weight" in p and "bias" in p and np.ndim(p["weight"]) == 2:  # Linear
-            sd[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(p["weight"]).T)
-            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
-        elif "weight" in p:  # HWIO conv2d → OIHW, WIO conv1d → (out, in, k)
-            w = np.asarray(p["weight"])
-            sd[f"{prefix}.weight"] = np.ascontiguousarray(
-                w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.transpose(2, 1, 0))
-        else:  # a block: its convs and BNs by name, a ResNet downsample by index
-            for k, v in p.items():
-                if k == "downsample" and "conv" in v:
-                    i = int(p["stride"] != 1)  # (AvgPool,) conv, BN
-                    put(f"{prefix}.downsample.{i}", v["conv"])
-                    put(f"{prefix}.downsample.{i + 1}", v["bn"])
-                elif isinstance(v, dict):
-                    put(f"{prefix}.{k}", v)
-
-    if "features" in tree:  # MobileNetV1: conv_bn (0, 2), conv_dw (0, 2, 4, 5)
-        for i, f in enumerate(tree["features"]):
-            names = (("conv", 0), ("bn", 2)) if f["kind"] == "bn" else (
-                ("dwconv", 0), ("bn1", 2), ("pwconv", 4), ("bn2", 5))
-            for k, j in names:
-                put(f"features.{i}.{j}", f[k])
-        tree = {k: tree[k] for k in ("bn0", "fc1", "fc_audioset")}
-    elif "stem_conv" in tree:  # MobileNetV2
-        put("features.0.0", tree["stem_conv"])
-        put("features.0.2", tree["stem_bn"])
-        for i, b in enumerate(tree["blocks"], 1):
-            idx = ((("dwconv", 0), ("dw_bn", 2), ("project_conv", 4), ("project_bn", 5))
-                   if b["expand"] == 1 else
-                   (("expand_conv", 0), ("expand_bn", 1), ("dwconv", 3), ("dw_bn", 5),
-                    ("project_conv", 7), ("project_bn", 8)))
-            for k, j in idx:
-                put(f"features.{i}.conv.{j}", b[k])
-        put(f"features.{len(tree['blocks']) + 1}.0", tree["head_conv"])
-        put(f"features.{len(tree['blocks']) + 1}.1", tree["head_bn"])
-        tree = {k: tree[k] for k in ("bn0", "fc1", "fc_audioset")}
-    # Wavegram_Cnn14 keeps the log-mel branch's conv_block1, so its blocks
-    # are conv_block2..6
-    first = 2 if "blocks" in tree and "conv_block1" in tree else 1
-    for k, v in tree.items():
-        if k == "blocks":
-            for i, b in enumerate(v):
-                put(f"conv_block{i + first}", b)
-        elif k == "layers":
-            for li, stage in enumerate(v, 1):
-                for bi, b in enumerate(stage):
-                    put(f"resnet.layer{li}.{bi}", b)
-        elif k == "att":  # AttBlock's Conv1d k1 heads
-            for h in ("att", "cla"):
-                sd[f"att_block.{h}.weight"] = np.ascontiguousarray(np.asarray(v[h]["weight"]).T)[:, :, None]
-                sd[f"att_block.{h}.bias"] = np.asarray(v[h]["bias"])
-        elif isinstance(v, dict):
-            put(k, v)
-    return sd
+    return dict(files=len(paths), audio_s=seconds, max_abs_err=err)
 
 
 def pann_check(dev, work_dir: str) -> dict:
     """Cnn10, Cnn14, Cnn14_DecisionLevelAtt and every name of ``ZOO_NAMES``
-    at full width on 8 x 10 s clips on the card (median CUDA-event time of
-    5 calls), each held against the CPU on the first clip; then the
+    at full width on 8 x 10 s clips on the card, each held against the CPU
+    on the first clip; then the
     ``REGISTRY_ZOO`` checkpoints, staged under ``CONETTE_CKPT_DIR`` in the
     reference's layout, loaded with ``load_registry_pann`` (equal to the
     staged tree bit for bit) and run on the card."""
@@ -2136,11 +1541,7 @@ def pann_check(dev, work_dir: str) -> dict:
 
     def check(name, params, cpu) -> dict:
         with torch.inference_mode():
-            def run():
-                return apply_pann_model(name, params, wav.to(dev), lens.to(dev))
-
-            ms = time_ms(run, runs=5)
-            card = run()
+            card = apply_pann_model(name, params, wav.to(dev), lens.to(dev))
         errs = {}
         for k, want in cpu.items():
             got = card[k][:1].cpu()
@@ -2148,7 +1549,7 @@ def pann_check(dev, work_dir: str) -> dict:
             assert torch.isfinite(card[k].float()).all(), (name, k)
             errs[k] = errors(want, got)[1] if want.is_floating_point() else float((got != want).sum())
         assert max(errs.values()) <= PANN_REL_TOL, (name, errs)
-        return dict(ms=ms, rel_err=errs, frame_embs=list(card["frame_embs"].shape))
+        return dict(rel_err=errs, frame_embs=list(card["frame_embs"].shape))
 
     for i, name in enumerate(PANN_NAMES + ZOO_NAMES):
         tree, width = build_pann_model(name, torch.Generator().manual_seed(73 + i))
@@ -2160,7 +1561,7 @@ def pann_check(dev, work_dir: str) -> dict:
         out[name] = check(name, to_torch(tree, dev), cpu)
         if name in registry_archs:
             trees[name], cpu_refs[name] = tree, cpu
-        print(f"  {name}: 8 x 10 s on the card {out[name]['ms']:.2f} ms a call; frame_embs "
+        print(f"  {name}: 8 x 10 s on the card, frame_embs "
               f"{tuple(out[name]['frame_embs'])}; card vs CPU on one clip, max error relative to "
               f"the largest value {({k: f'{v:.1e}' for k, v in out[name]['rel_err'].items()})} "
               f"(tol {PANN_REL_TOL})", flush=True)
@@ -2177,18 +1578,15 @@ def pann_check(dev, work_dir: str) -> dict:
             path = os.path.join(ckpt_dir, PANN_REGISTRY[reg].fname)
             torch.save({"model": {k: torch.from_numpy(v) for k, v in reference_pann_state(want).items()}},
                        path)
-            t0 = time.perf_counter()
             loaded = load_registry_pann(reg)
-            load_s = time.perf_counter() - t0
             os.remove(path)
             got, staged = dict(named_leaves(loaded)), dict(named_leaves(want))
             assert got.keys() == staged.keys() and all(
                 np.asarray(v).tobytes() == np.asarray(staged[k]).tobytes() for k, v in got.items()), reg
-            rec = check(name, to_torch(loaded, dev), cpu_refs[name])
-            out[f"registry/{reg}"] = dict(rec, load_s=load_s)
-            print(f"  load_registry_pann({reg!r}) from a staged reference state dict in "
-                  f"{load_s:.2f} s, equal to the staged tree; on the card {rec['ms']:.2f} ms a "
-                  f"call, max error relative to the CPU {max(rec['rel_err'].values()):.1e}", flush=True)
+            out[f"registry/{reg}"] = rec = check(name, to_torch(loaded, dev), cpu_refs[name])
+            print(f"  load_registry_pann({reg!r}) from a staged reference state dict, equal to the "
+                  f"staged tree; on the card, max error relative to the CPU "
+                  f"{max(rec['rel_err'].values()):.1e}", flush=True)
     finally:
         if saved_env is None:
             os.environ.pop("CONETTE_CKPT_DIR")
@@ -2207,15 +1605,12 @@ def frontends_check(dev) -> dict:
     for name in FRONTENDS:
         fn_card, width = get_frontend(name, seed=3, device=dev)
         fn_cpu, _ = get_frontend(name, seed=3, device="cpu")
-        t0 = time.perf_counter()
         got = fn_card(clip, 44_100)
-        card_s = time.perf_counter() - t0
         want = fn_cpu(clip, 44_100)
         diff = float(np.abs(got - want).max())
         db = name.endswith(("spectrogram", "gammatonegram"))
         tol = DB_ATOL if db else PANN_REL_TOL * float(np.abs(want).max())
-        out[name] = dict(shape=list(got.shape), width=width, max_abs_err=diff, tol=tol,
-                         card_s=card_s)
+        out[name] = dict(shape=list(got.shape), width=width, max_abs_err=diff, tol=tol)
         assert got.shape == want.shape and got.shape[1] == width and np.isfinite(got).all()
         assert diff <= tol, (name, diff, tol)
     print("  get_frontend, card vs CPU on one 10 s clip: " + "; ".join(
@@ -2234,43 +1629,26 @@ def prepare_phase(work_dir: str) -> dict:
 
     from conette_torch.data.hdf import HDFDataset
     from conette_torch.huggingface.model import CoNeTTEModel
-    from conette_torch.huggingface.preprocessor import CoNeTTEPreprocessor
     from conette_torch.metrics.functional import bert_score, fense
     from conette_torch.models.convnext import convnext_init
     from conette_torch.prepare import ConvNeXtFrontend, main_prepare, scan_local_dataset
     from conette_torch.train.main import main_train
-    from conette_torch.utils import audio_io
 
-    t0 = time.perf_counter()
     corpus = write_prepare_corpus(work_dir)
     audio_dir = os.path.join(work_dir, "audio")
-    write_s = time.perf_counter() - t0
-    print(f"  wrote {sum(len(n) for _, n in corpus.values())} files in {write_s:.1f} s", flush=True)
+    print(f"  wrote {sum(len(n) for _, n in corpus.values())} files", flush=True)
     native = native_loader_check(audio_dir, corpus["dev"][1] + corpus["val"][1])
 
     hdf_root = os.path.join(work_dir, "hdf")
-    packs, calls = {}, {}
+    packs = {}
     reset_launches()
     for subset, (csv_path, names) in corpus.items():
-        timer = MethodTimer({"decode": (audio_io, "load_audio", False),
-                             "resample": (CoNeTTEPreprocessor, "load_resample", False),
-                             "encode": (CoNeTTEPreprocessor, "encode", True)})
-        t0 = time.perf_counter()
-        with timer:
-            rc = main_prepare(["--audio_dir", audio_dir, "--captions_csv", csv_path,
-                               "--dataset", "clotho", "--subset", subset, "--out_dir", hdf_root,
-                               "--batch_size", str(PREP_BATCH), "--debug"])
-        wall = time.perf_counter() - t0
+        rc = main_prepare(["--audio_dir", audio_dir, "--captions_csv", csv_path,
+                           "--dataset", "clotho", "--subset", subset, "--out_dir", hdf_root,
+                           "--batch_size", str(PREP_BATCH), "--debug"])
         assert rc == 0, rc
         packs[subset] = os.path.join(hdf_root, f"clotho_{subset}_resample_mean_convnext_ident.hdf")
-        host = wall - timer.seconds["encode"]
-        calls[subset] = dict(files=len(names), wall_s=wall, files_per_s=len(names) / wall,
-                             host_share=host / wall, **{f"{k}_s": v for k, v in timer.seconds.items()})
-        print(f"  main_prepare {subset}: {len(names)} files in {wall:.2f} s ({len(names) / wall:.1f} "
-              f"files/s), --debug check passed; host decode {timer.seconds['decode']:.2f} s, "
-              f"resample + pad {timer.seconds['resample']:.2f} s, encoder calls (captures "
-              f"included, synchronised) {timer.seconds['encode']:.2f} s: host share "
-              f"{host / wall:.3f}", flush=True)
+        print(f"  main_prepare {subset}: {len(names)} files, --debug check passed", flush=True)
     prepare_launches = count_launches()
     assert prepare_launches == dict.fromkeys(prepare_launches, 0), prepare_launches
 
@@ -2285,15 +1663,13 @@ def prepare_phase(work_dir: str) -> dict:
             assert a.shape == (ds.at(i, "audio_lens"), 768) and np.isfinite(a).all()
             assert len(ds.at(i, "captions")) == 5 and ds.at(i, "subset") == subset
     dev_ds = scan_local_dataset(audio_dir, corpus["dev"][0], "clotho", "dev")
-    t0 = time.perf_counter()
     cpu_rows = ConvNeXtFrontend(device="cpu").encode_dataset_batched(
         dev_ds, list(range(PREP_BATCH)), PREP_BATCH)[:PREP_ROWS_CHECKED]
-    cpu_s = time.perf_counter() - t0
     packed = HDFDataset(packs["dev"])
     row_err = max(float(np.abs(packed.at(i, "audio") - r).max()) for i, r in enumerate(cpu_rows))
     print(f"  packs read back ({', '.join(f'{k} {len(HDFDataset(p))}' for k, p in packs.items())} "
           f"rows, frames {[int(packed.at(i, 'audio_lens')) for i in range(PREP_ROWS_CHECKED)]} ...); "
-          f"{PREP_ROWS_CHECKED} dev rows against the f32 encoder on the CPU ({cpu_s:.1f} s): max abs "
+          f"{PREP_ROWS_CHECKED} dev rows against the f32 encoder on the CPU: max abs "
           f"diff {row_err:.2e} (tol {PREP_ROW_ATOL}); wrapper launches while packing "
           f"{prepare_launches} (the f32 route is the plain one)", flush=True)
     assert all(r.shape == packed.at(i, "audio").shape for i, r in enumerate(cpu_rows))
@@ -2309,30 +1685,24 @@ def prepare_phase(work_dir: str) -> dict:
             f"dm.hdf_root={hdf_root}", f"dm.train_hdfs=[{name.format('dev')}]",
             f"dm.val_hdfs=[{name.format('val')}]", f"dm.test_hdfs=[{name.format('test')}]",
             f"log_root={os.path.join(work_dir, 'logs')}"]
-    t0 = time.perf_counter()
     out = main_train(argv)
-    train_s = time.perf_counter() - t0
     fit = out["fit"]
     assert fit.global_step == 2 and np.isfinite(out["best"]), (fit.global_step, out["best"])
     model = CoNeTTEModel.from_pretrained(out["run_dir"], device="cuda",
                                          encoder_params=convnext_init(torch.Generator().manual_seed(0)))
     files = [os.path.join(audio_dir, n) for n in (corpus["test"][1][0], corpus["test"][1][-1])]
-    t0 = time.perf_counter()
     captions = model(files)
-    caption_s = time.perf_counter() - t0
-    print(f"  main_train on the packs: {train_s:.1f} s, {fit.global_step} steps of "
-          f"{PREP_TRAIN_BSIZE}, best val/loss {out['best']:.4f}; captions of "
-          f"{[os.path.basename(f) for f in files]} from its run directory in {caption_s:.2f} s: "
-          f"{captions['cands']}", flush=True)
+    print(f"  main_train on the packs: {fit.global_step} steps of {PREP_TRAIN_BSIZE}, best "
+          f"val/loss {out['best']:.4f}; captions of {[os.path.basename(f) for f in files]} from "
+          f"its run directory: {captions['cands']}", flush=True)
     assert len(captions["cands"]) == 2 and np.isfinite(captions["lprobs"]).all()
     del model
 
     panns = pann_check(torch.device("cuda"), work_dir)
     frontends = frontends_check(torch.device("cuda"))
-    return dict(write_s=write_s, native=native, prepare=calls, prepare_launches=prepare_launches,
-                rows_checked=PREP_ROWS_CHECKED, row_max_abs_err=row_err, cpu_rows_s=cpu_s,
-                main_train_s=train_s, best_val_loss=out["best"], caption_s=caption_s,
-                cands=captions["cands"], pann=panns, frontends=frontends)
+    return dict(native=native, prepare_launches=prepare_launches,
+                rows_checked=PREP_ROWS_CHECKED, row_max_abs_err=row_err,
+                best_val_loss=out["best"], cands=captions["cands"], pann=panns, frontends=frontends)
 
 
 # phase 9: the encoders' training mode. ConvNeXt-Tiny at full width (layer
@@ -2394,28 +1764,11 @@ def multi_hot(rng: np.random.Generator, b: int) -> np.ndarray:
     return y
 
 
-def timed_steps(one, n: int) -> dict:
-    """``one()`` once to warm up, then ``n`` times between CUDA events: the
-    step times, their median, the peak device memory of the timed steps
-    and the losses."""
-    import torch
-
-    one()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    events, losses = [], []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses.append(one())
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    times = [a.elapsed_time(e) for a, e in events]
-    losses = [float(x) for x in losses]
+def finite_losses(one, n: int) -> list[float]:
+    """``one()`` ``n`` times: the losses, which must be finite."""
+    losses = [float(one()) for _ in range(n)]
     assert all(np.isfinite(losses)), losses
-    return {"step_ms": times, "median_step_ms": statistics.median(times), "losses": losses,
-            "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20}
+    return losses
 
 
 def convnext_step_fn(params, wav, targets, compute_dtype, gen, aug_gen, drop_path_rate=0.1):
@@ -2496,7 +1849,7 @@ def encoder_card_vs_cpu(params_cpu, wav, targets) -> dict:
     return res
 
 
-def convnext_training(dev, smi: str) -> dict:
+def convnext_training(dev) -> dict:
     """Phase 9 (a): ConvNeXt-Tiny in training mode on the card."""
     import torch
 
@@ -2518,27 +1871,24 @@ def convnext_training(dev, smi: str) -> dict:
         return {k: v.clone() for k, v in out.items()}, count_launches()
 
     before, before_launches = deterministic_call()
-    timings, profile = {}, None
+    losses, profile = {}, None
     reset_launches()
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         gen = torch.Generator(dev).manual_seed(93)
         aug_gen = torch.Generator(dev).manual_seed(94)
         one = convnext_step_fn(to_torch(init, dev), wav, torch.from_numpy(targets_np).to(dev),
                                dtype, gen, aug_gen)
-        timings[name] = timed_steps(one, ENC_TRAIN_STEPS)
+        losses[name] = finite_losses(one, ENC_TRAIN_STEPS)
         if name == "bf16":
             profile = profiled(one)
         del one
-        print(f"  ConvNeXt-Tiny training step at {name} ({BATCH} x {ENC_TRAIN_SECONDS:.0f} s, drop-path "
-              f"0.1, SpecAugmentRatio, AdamW, clip 1): median {timings[name]['median_step_ms']:.2f} ms "
-              f"over {ENC_TRAIN_STEPS} steps ({[round(t, 2) for t in timings[name]['step_ms']]}), "
-              f"peak device memory {timings[name]['peak_memory_mib']:.0f} MiB, losses "
-              f"{[round(x, 4) for x in timings[name]['losses']]}; {smi}", flush=True)
+        print(f"  ConvNeXt-Tiny training steps at {name} ({BATCH} x {ENC_TRAIN_SECONDS:.0f} s, "
+              f"drop-path 0.1, SpecAugmentRatio, AdamW, clip 1): losses "
+              f"{[round(x, 4) for x in losses[name]]}", flush=True)
     train_launches = count_launches()
-    print(f"  a profiled bf16 training step: {profile['device_ms']:.2f} ms of kernels in "
-          f"{profile['wall_ms']:.2f} ms; custom op calls {profile['op_calls']}, kernel calls "
-          f"{profile['calls']}; wrapper launches over the training steps {train_launches}; top "
-          f"{profile['top']}", flush=True)
+    print(f"  a profiled bf16 training step: custom op calls {profile['op_calls']}, kernel calls "
+          f"{profile['calls']}; wrapper launches over the training steps {train_launches}",
+          flush=True)
     assert train_launches == dict.fromkeys(train_launches, 0), train_launches
     assert profile["op_calls"] == dict.fromkeys(profile["op_calls"], 0), profile["op_calls"]
     assert profile["calls"] == dict.fromkeys(profile["calls"], 0), profile["calls"]
@@ -2554,7 +1904,7 @@ def convnext_training(dev, smi: str) -> dict:
     del frozen, wav, before, after
     torch.cuda.empty_cache()
     versus = encoder_card_vs_cpu(init, wav_np[:ENC_CHECK_CLIPS], targets_np[:ENC_CHECK_CLIPS])
-    return {"timing": timings, "profiled_bf16_step": profile, "training_launches": train_launches,
+    return {"losses": losses, "profiled_bf16_step": profile, "training_launches": train_launches,
             "deterministic_launches": after_launches, "deterministic_same_bits": same,
             "card_vs_cpu": versus}
 
@@ -2639,7 +1989,7 @@ def conv_bias_of(grads: dict, k: str) -> bool:
     return k.endswith("/bias") and weight is not None and weight.ndim == 4
 
 
-def pann_training(dev, smi: str) -> dict:
+def pann_training(dev) -> dict:
     """Phase 9 (b): Cnn14 trains on the card; the zoo's training-mode
     forwards and five encoders' gradients, card against CPU."""
     import torch
@@ -2664,12 +2014,9 @@ def pann_training(dev, smi: str) -> dict:
     state = step.init_train_state(params, opt)
     fn = step.make_train_step(None, grad_clip_norm=1.0, loss_fn=loss_fn)
     gen = torch.Generator(dev).manual_seed(97)
-    cnn14 = timed_steps(lambda: fn(state, {}, gen)[1]["train/loss"], ENC_TRAIN_STEPS)
-    print(f"  Cnn14 training step (f32, {BATCH} x {ENC_TRAIN_SECONDS:.0f} s, dropout 0.2 / 0.5, AdamW, "
-          f"clip 1): median {cnn14['median_step_ms']:.2f} ms over {ENC_TRAIN_STEPS} steps "
-          f"({[round(t, 2) for t in cnn14['step_ms']]}), peak device memory "
-          f"{cnn14['peak_memory_mib']:.0f} MiB, losses {[round(x, 4) for x in cnn14['losses']]}; "
-          f"{smi}", flush=True)
+    cnn14 = finite_losses(lambda: fn(state, {}, gen)[1]["train/loss"], ENC_TRAIN_STEPS)
+    print(f"  Cnn14 training steps (f32, {BATCH} x {ENC_TRAIN_SECONDS:.0f} s, dropout 0.2 / 0.5, "
+          f"AdamW, clip 1): losses {[round(x, 4) for x in cnn14]}", flush=True)
     del state, opt, fn, params
     torch.cuda.empty_cache()
 
@@ -2742,19 +2089,17 @@ def pann_training(dev, smi: str) -> dict:
               f"{over:.2f} times the card's own change under a {NUDGE_GRAD} nudge (tol "
               f"{COND_GRAD}); conv-bias noise {noise:.1e} of their weights' largest gradient "
               f"(tol {BIAS_NOISE})", flush=True)
-    return {"cnn14_timing": cnn14, "forward_card_vs_cpu": forward, "grads_card_vs_cpu": grads}
+    return {"cnn14_losses": cnn14, "forward_card_vs_cpu": forward, "grads_card_vs_cpu": grads}
 
 
-def encoder_training_phase(smi: str) -> dict:
+def encoder_training_phase() -> dict:
     """Phase 9: the encoders' training mode at full width on the card."""
     import torch
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    out = {"convnext": convnext_training(dev, smi)}
+    out = {"convnext": convnext_training(dev)}
     torch.cuda.empty_cache()
-    out["pann"] = pann_training(dev, smi)
-    out["phase_s"] = time.perf_counter() - t0
+    out["pann"] = pann_training(dev)
     return out
 
 
@@ -2774,15 +2119,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def parallel_step(model_cfg, mesh=None, timed: int = 5, dev=None, split: bool = False) -> dict:
+def parallel_step(model_cfg, mesh=None, dev=None) -> dict:
     """One production step (dropout, mixup with drawn λ and pairing, clip 1,
     AdamW at ``PARALLEL_LR``, wd 2.0) at batch ``BSIZE`` from seeds on this
     process's card, alone or, with ``mesh``, sharded: the global loss, the
     global batch's gradient (drawn from a copy of the generator's state)
-    and the parameters after the step, whole, as numpy arrays; then the
-    wall time of ``timed`` more steps, each synchronised (the median);
-    with ``split``, one more step under the profiler (``profiled``: its
-    random draws, all-reduce and all-gather kernels apart).
+    and the parameters after the step, whole, as numpy arrays.
     ``dev``: this process's card unless given (the CPU rehearses it)."""
     import torch
 
@@ -2794,7 +2136,6 @@ def parallel_step(model_cfg, mesh=None, timed: int = 5, dev=None, split: bool = 
     from conette_torch.weights import named_leaves, to_torch
 
     dev = dev or torch.device("cuda", torch.cuda.current_device())
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     params = to_torch(conette_init(torch.Generator().manual_seed(41), model_cfg), dev)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in train_batch(model_cfg, np.random.default_rng(42)).items()}
@@ -2815,28 +2156,11 @@ def parallel_step(model_cfg, mesh=None, timed: int = 5, dev=None, split: bool = 
         grads = [full_value(all_reduce(g, axis(mesh, "data").group), leaf_sharding(k, g, mesh), mesh)
                  for (k, _), g in zip(named, grads)]
     gen.set_state(start)
-    sync()
-    t0 = time.perf_counter()
     state, metrics = fn(state, batch, gen)
-    loss = metrics["train/loss"].item()
-    seconds = time.perf_counter() - t0
-    out = {"loss": loss, "seconds": seconds,
-           "grads": {k: g.cpu().numpy() for (k, _), g in zip(named, grads)},
-           # copies: the timed steps below update the leaves in place
-           "params": {k: t.detach().cpu().numpy().copy()
-                      for k, t in named_leaves(step.gather_params(state.params, mesh))}}
-    times = []
-    for _ in range(timed):
-        sync()
-        t0 = time.perf_counter()
-        fn(state, batch, gen)
-        sync()
-        times.append(time.perf_counter() - t0)
-    out["step_ms"] = statistics.median(times) * 1e3
-    if split:
-        prof = profiled(lambda: fn(state, batch, gen))
-        out["split"] = {k: prof[k] for k in ("wall_ms", "device_ms", "kinds_ms", "top")}
-    return out
+    return {"loss": metrics["train/loss"].item(),
+            "grads": {k: g.cpu().numpy() for (k, _), g in zip(named, grads)},
+            "params": {k: t.detach().cpu().numpy()
+                       for k, t in named_leaves(step.gather_params(state.params, mesh))}}
 
 
 def same_step(want: dict, got: dict, what: str) -> dict:
@@ -2887,12 +2211,8 @@ def parallel_rank(rank: int, world: int, port: int, ckpt: str, paths: list, task
     mesh = make_mesh(world)
     step_res = parallel_step(model_cfg, mesh)
     model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
-    t0 = time.perf_counter()
     results = caption_corpus(model, paths, task=tasks, batch_size=BATCH, mesh=mesh)
-    torch.cuda.synchronize()
-    corpus_s = time.perf_counter() - t0
     return {"step": step_res if rank == 0 else {"loss": step_res["loss"]},
-            "step_s": step_res["seconds"], "step_ms": step_res["step_ms"], "corpus_s": corpus_s,
             "captions": [[r.fname, r.task, r.caption, r.lprob] for r in results]}
 
 
@@ -2958,7 +2278,7 @@ def trace_names(path: str) -> dict:
             for name, marker in CALL_MARKERS.items()}
 
 
-def parallel_phase(ckpt: str, corpus: dict, work_dir: str, smi: str) -> dict:
+def parallel_phase(ckpt: str, corpus: dict, work_dir: str) -> dict:
     """Phase 8: (a) a one-process NCCL group at full width: the 1 x 1 mesh's
     ``make_sharded_caption_fn`` against ``caption_batch`` (bit-equal tokens,
     18 + 3 + 1 kernels in a profiled call) and ``make_sharded_train_step``
@@ -2979,9 +2299,8 @@ def parallel_phase(ckpt: str, corpus: dict, work_dir: str, smi: str) -> dict:
     from conette_torch.utils.profiling import trace
     from conette_torch.weights import to_torch
 
-    t_phase = time.perf_counter()
     model_cfg = ConetteConfig(vocab_size=4000 + 4 + 4)
-    out: dict = {"card": smi}
+    out: dict = {}
 
     # (a) one process, NCCL, full width
     initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda", backend="nccl")
@@ -2994,39 +2313,28 @@ def parallel_phase(ckpt: str, corpus: dict, work_dir: str, smi: str) -> dict:
         bos = bos_ids(model, tasks)
         reset_launches()
         fn = make_sharded_caption_fn(model, mesh, beam_size=3)
-        t0 = time.perf_counter()
         preds, lprobs = fn(wav, lens, bos)
-        first_ms = (time.perf_counter() - t0) * 1e3
         out["launches"] = count_launches()
         done, want_preds, want_lprobs = caption_batch(model, wav, lens, bos, 3)
         done.synchronize()
         assert torch.equal(preds, want_preds) and torch.equal(lprobs, want_lprobs), "1 x 1 mesh tokens"
         prof = profiled(lambda: fn(wav, lens, bos))
         assert prof["calls"] == {"logmel": 1, "convnext_block": 18, "downsample": 3}, prof["calls"]
-        warm = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn(wav, lens, bos)
-            warm.append((time.perf_counter() - t0) * 1e3)
-        out["sharded_caption"] = {"first_ms": first_ms, "warm_ms": warm, "calls": prof["calls"],
-                                  "tokens_equal_caption_batch": True}
+        out["sharded_caption"] = {"calls": prof["calls"], "tokens_equal_caption_batch": True}
         print(f"  (a) one-process NCCL group, 1 x 1 mesh: make_sharded_caption_fn on 8 x 10 s "
-              f"equals caption_batch bit for bit; first call {first_ms:.1f} ms (captures; wrapper "
-              f"launches {out['launches']}), warm {[round(x, 1) for x in warm]} ms; a profiled "
-              f"call's kernels {prof['calls']}", flush=True)
+              f"equals caption_batch bit for bit; its first call's wrapper launches "
+              f"{out['launches']}, a profiled call's kernels {prof['calls']}", flush=True)
         assert all(v > 0 for v in out["launches"].values()), out["launches"]
 
         # (c) first part: a trace around one warm request
         clips = make_clips(rng, BATCH, 10.0, 44100)
         model(clips, sr=44100, task=tasks)
         trace_dir = os.path.join(work_dir, "trace")
-        t0 = time.perf_counter()
         with trace(trace_dir):
             model(clips, sr=44100, task=tasks)
-        out["trace"] = {"seconds": time.perf_counter() - t0,
-                        "kernel_events": trace_names(os.path.join(trace_dir, "trace.json"))}
-        print(f"  (c) utils/profiling.trace around a warm request: {out['trace']['seconds']:.2f} s, "
-              f"kernel events in its trace.json {out['trace']['kernel_events']}", flush=True)
+        out["trace"] = {"kernel_events": trace_names(os.path.join(trace_dir, "trace.json"))}
+        print(f"  (c) utils/profiling.trace around a warm request: kernel events in its "
+              f"trace.json {out['trace']['kernel_events']}", flush=True)
         assert all(v > 0 for v in out["trace"]["kernel_events"].values()), out["trace"]
         del model
 
@@ -3034,10 +2342,6 @@ def parallel_phase(ckpt: str, corpus: dict, work_dir: str, smi: str) -> dict:
         sharded = parallel_step(model_cfg, mesh)
         out["step_1x1"] = same_step(single, sharded, "(a) make_sharded_train_step on a 1 x 1 mesh "
                                     f"against make_train_step, batch {BSIZE}")
-        out["step_1x1"]["seconds"] = {"single": single["seconds"], "sharded": sharded["seconds"]}
-        out["step_1x1"]["step_ms"] = {"single": single["step_ms"], "sharded": sharded["step_ms"]}
-        print(f"  (a) warm steps (median of 5): alone {single['step_ms']:.2f} ms, on the 1 x 1 mesh "
-              f"{sharded['step_ms']:.2f} ms", flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -3045,49 +2349,31 @@ def parallel_phase(ckpt: str, corpus: dict, work_dir: str, smi: str) -> dict:
     # captions the corpus alone at each rank's 4 rows a program
     def one_process():
         model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
-        t0 = time.perf_counter()
-        results = caption_corpus(model, corpus["paths"], task=corpus["tasks"], batch_size=BATCH // 2)
-        torch.cuda.synchronize()
-        return results, time.perf_counter() - t0
+        return caption_corpus(model, corpus["paths"], task=corpus["tasks"], batch_size=BATCH // 2)
 
-    t0 = time.perf_counter()
-    ranks, (one_4, one_s) = spawn_ranks(parallel_rank, 2, (ckpt, corpus["paths"], corpus["tasks"],
-                                                         model_cfg), one_process)
-    two_s = time.perf_counter() - t0
+    ranks, one_4 = spawn_ranks(parallel_rank, 2, (ckpt, corpus["paths"], corpus["tasks"], model_cfg),
+                               one_process)
     out["dp2_step"] = same_step(single, ranks[0]["step"], "(b) DP = 2 over gloo, 256 rows a rank, "
                                 "against the one-process step")
     assert ranks[1]["step"]["loss"] == ranks[0]["step"]["loss"]
     want4 = [[r.fname, r.task, r.caption, r.lprob] for r in one_4]
     assert ranks[0]["captions"] == ranks[1]["captions"] == want4, "two-process corpus"
     same8 = sum(a[2] == b[1] for a, b in zip(ranks[0]["captions"], corpus["captions"]))
-    out["dp2"] = {"seconds": two_s, "step_s": [r["step_s"] for r in ranks],
-                  "step_ms": [r["step_ms"] for r in ranks],
-                  "corpus_s": [r["corpus_s"] for r in ranks], "one_process_corpus_s": one_s,
-                  "files": len(corpus["paths"]),
-                  "captions_equal_one_process_4_rows": True,
+    out["dp2"] = {"files": len(corpus["paths"]), "captions_equal_one_process_4_rows": True,
                   "captions_equal_phase4_8_rows": same8}
     print(f"  (b) two processes over gloo on one card: captions of the {len(corpus['paths'])} files "
           f"equal one process's at 4 rows a program (each rank's share of a batch of 8), "
-          f"{same8}/{len(corpus['paths'])} equal phase 4's at 8 rows; step "
-          f"{[round(x, 3) for x in out['dp2']['step_s']]} s (warm {[round(x, 1) for x in out['dp2']['step_ms']]} "
-          f"ms), corpus "
-          f"{[round(x, 2) for x in out['dp2']['corpus_s']]} s a rank (one process alone, at the "
-          f"same time: {one_s:.2f} s), {two_s:.1f} s with start-up "
-          f"({smi}). Two ranks sharing one card is no scaling number; multi-card numbers come from "
-          f"multicard() on a host of four cards.", flush=True)
+          f"{same8}/{len(corpus['paths'])} equal phase 4's at 8 rows", flush=True)
 
     # (c) second part: the batch-size search on the production step
     params = to_torch(conette_init(torch.Generator().manual_seed(44), model_cfg), torch.device("cuda"))
-    t0 = time.perf_counter()
     largest = tune_batch_size_for_model(model_cfg, params, start=TUNE_START, max_bsize=TUNE_CAP)
     del params
     torch.cuda.empty_cache()
     stop = "the cap" if largest * 2 > TUNE_CAP else "out of memory"
-    out["tune"] = {"largest": largest, "stopped_on": stop, "seconds": time.perf_counter() - t0,
-                   "start": TUNE_START, "cap": TUNE_CAP}
+    out["tune"] = {"largest": largest, "stopped_on": stop, "start": TUNE_START, "cap": TUNE_CAP}
     print(f"  (c) train/tune.find_max_batch_size on the production step: largest batch {largest}, "
-          f"stopped on {stop}, {out['tune']['seconds']:.1f} s", flush=True)
-    out["phase_s"] = time.perf_counter() - t_phase
+          f"stopped on {stop}", flush=True)
     return out
 
 
@@ -3118,7 +2404,7 @@ def parallel_alone() -> dict:
                                  task=tasks, batch_size=BATCH)
         corpus = {"paths": paths, "tasks": tasks,
                   "captions": [[r.task, r.caption, r.lprob] for r in results]}
-        out = parallel_phase(ckpt, corpus, work, smi)
+        out = parallel_phase(ckpt, corpus, work)
     print(json.dumps(out, default=float), flush=True)
     return out
 
@@ -3148,25 +2434,20 @@ def multicard_rank(rank: int, world: int, port: int, ckpt: str, model_cfg, batch
                timeout_s=PARALLEL_TIMEOUT_S)
     out = {}
     for mp in (1, 2):
-        res = parallel_step(model_cfg, make_mesh(world, mp), split=True)
-        out[f"data{world // mp}_model{mp}"] = (
-            res if rank == 0 else {k: res[k] for k in ("loss", "step_ms", "split")})
+        res = parallel_step(model_cfg, make_mesh(world, mp))
+        if rank == 0:
+            out[f"data{world // mp}_model{mp}"] = res
     model = conette_torch.conette(ckpt, compute_dtype=torch.bfloat16)
     batch = np.load(batch_npz)
     fn = make_sharded_caption_fn(model, make_mesh(world), beam_size=3)
     preds, lprobs = fn(batch["wav"], batch["lens"], batch["bos"])  # captures
-    warm = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        fn(batch["wav"], batch["lens"], batch["bos"])
-        warm.append((time.perf_counter() - t0) * 1e3)
-    out["captions"] = {"preds": preds.numpy(), "lprobs": lprobs.numpy(), "warm_ms": warm}
+    out["captions"] = {"preds": preds.numpy(), "lprobs": lprobs.numpy()}
     return out
 
 
 def fit_record(run_dir: str) -> dict:
-    """A run directory's per-step train losses, fit seconds, and the best
-    checkpoint's parameters and Adam first moments."""
+    """A run directory's per-step train losses and steps, and the best
+    checkpoint's parameters and Adam moments."""
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [r["train/loss"] for r in sorted((r for r in recs if "train/loss" in r),
@@ -3177,8 +2458,7 @@ def fit_record(run_dir: str) -> dict:
         params = {k: z[k] for k in z.files}
     with np.load(os.path.join(best, "opt_state.npz")) as z:
         moments = {k[len("state/"):]: z[k] for k in z.files if k.startswith("state/")}
-    return {"losses": losses, "fit_s": fit["fit_duration_s"], "wait_s": fit["fit_batch_wait_s"],
-            "steps": fit["fit_global_step"], "params": params, "moments": moments}
+    return {"losses": losses, "steps": fit["fit_global_step"], "params": params, "moments": moments}
 
 
 def same_fit(a: dict, b: dict, lr: float) -> dict:
@@ -3220,9 +2500,7 @@ def multicard(cards: int = MULTICARD_CARDS) -> dict:
     time (bit-equal), and ``torchrun`` of ``conette_torch.train.main`` over
     the cards against one process on one card (train-b512's packs, the pad
     shapes fixed: per-step losses within ``STEP_TOL``, the best
-    checkpoint's parameters as ``same_fit`` holds them). Each step is also
-    profiled once on one card and on every rank, its random draws,
-    all-reduce and all-gather kernels apart."""
+    checkpoint's parameters as ``same_fit`` holds them)."""
     import torch
 
     import conette_torch
@@ -3248,52 +2526,28 @@ def multicard(cards: int = MULTICARD_CARDS) -> dict:
         wav, lens = model.preprocessor.load_resample(
             make_clips(np.random.default_rng(9), BATCH * cards, 10.0, 44100), 44100)
         bos = bos_ids(model, tasks)
-        want, one_ms = [], []
-        for _ in range(4):  # the first captures
-            t0 = time.perf_counter()
+        for _ in range(2):  # the first captures
             want = [caption_batch(model, wav[i:i + BATCH], lens[i:i + BATCH], bos[i:i + BATCH], 3)
                     for i in range(0, len(wav), BATCH)]
             for done, _, _ in want:
                 done.synchronize()
-            one_ms.append((time.perf_counter() - t0) * 1e3)
         want_preds = np.concatenate([p.numpy() for _, p, _ in want])
         want_lprobs = np.concatenate([lp.numpy() for _, _, lp in want])
         del model
         batch_npz = os.path.join(work, "batch.npz")
         np.savez(batch_npz, wav=wav, lens=lens, bos=bos)
-        single = parallel_step(model_cfg, split=True)
+        single = parallel_step(model_cfg)
 
-        t0 = time.perf_counter()
         ranks, _ = spawn_ranks(multicard_rank, cards, (ckpt, model_cfg, batch_npz))
-        out["ranks_s"] = time.perf_counter() - t0
-        out["step_ms"] = {"one_card": single["step_ms"]}
         for name in (f"data{cards}_model1", f"data{cards // 2}_model2"):
             out[name] = same_step(single, ranks[0][name], f"{name} over {cards} cards (NCCL) against "
                                   f"one card, batch {BSIZE}")
-            out["step_ms"][name] = [r[name]["step_ms"] for r in ranks]
-        out["step_split"] = {"one_card": single["split"]} | {
-            name: [r[name]["split"] for r in ranks]
-            for name in (f"data{cards}_model1", f"data{cards // 2}_model2")}
-        for name, splits in out["step_split"].items():
-            for i, sp in enumerate(splits if isinstance(splits, list) else [splits]):
-                kinds = sp["kinds_ms"]
-                print(f"  a profiled step, {name}{f' rank {i}' if isinstance(splits, list) else ''}: "
-                      f"wall {sp['wall_ms']:.2f} ms, kernels {sp['device_ms']:.2f} ms: random draws "
-                      f"{kinds['draws']:.2f}, all-reduce {kinds['all_reduce']:.2f}, all-gather "
-                      f"{kinds['all_gather']:.2f}, the rest "
-                      f"{sp['device_ms'] - sum(kinds.values()):.2f}", flush=True)
         for r in ranks:
             assert np.array_equal(r["captions"]["preds"], want_preds), "sharded tokens"
             assert np.array_equal(r["captions"]["lprobs"], want_lprobs), "sharded lprobs"
-        out["captions"] = {"rows": len(wav), "one_card_ms": one_ms[1:],
-                           "cards_ms": [r["captions"]["warm_ms"] for r in ranks]}
-        print(f"  steps at batch {BSIZE} (warm, median of 5): one card {single['step_ms']:.2f} ms; "
-              + "; ".join(f"{k} {[round(x, 2) for x in v]} ms a rank"
-                          for k, v in out["step_ms"].items() if k != "one_card")
-              + f". make_sharded_caption_fn over {len(wav)} clips of 10 s: the tokens and lprobs of "
-              f"caption_batch on one card 8 rows at a time, bit for bit; {cards} cards "
-              f"{[round(x, 1) for x in out['captions']['cards_ms'][0]]} ms a call, one card "
-              f"{[round(x, 1) for x in one_ms[1:]]} ms", flush=True)
+        out["captions"] = {"rows": len(wav), "equal_one_card": True}
+        print(f"  make_sharded_caption_fn over {len(wav)} clips of 10 s: the tokens and lprobs of "
+              f"caption_batch on one card 8 rows at a time, bit for bit", flush=True)
 
         hdf = os.path.join(work, "hdf")
         os.makedirs(hdf)
@@ -3312,14 +2566,13 @@ def multicard(cards: int = MULTICARD_CARDS) -> dict:
                                        "--master-port", str(free_port())],
                  [f"dm.bsize={BSIZE // cards}"], ",".join(map(str, range(cards))))):
             log_root = os.path.join(work, f"logs_{name}")
-            t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, *launch, "-m", "conette_torch.train.main", *argv,
                                    *extra, f"log_root={log_root}"], cwd=REPO, capture_output=True,
                                   text=True, timeout=PARALLEL_TIMEOUT_S,
                                   env=env | {"CUDA_VISIBLE_DEVICES": visible})
             assert proc.returncode == 0, (name, proc.stderr[-4000:])
             (run_dir,) = [os.path.join(log_root, d) for d in os.listdir(log_root)]
-            runs[name] = fit_record(run_dir) | {"wall_s": time.perf_counter() - t0}
+            runs[name] = fit_record(run_dir)
         a, b = runs["one_card"], runs[f"torchrun_{cards}"]
         loss_rel = max(abs(x - y) / abs(x) for x, y in zip(a["losses"], b["losses"]))
         fit_cmp = same_fit(a, b, MAIN_TRAIN_LR)
@@ -3333,9 +2586,7 @@ def multicard(cards: int = MULTICARD_CARDS) -> dict:
               f"{fit_cmp['param_max_abs']:.2e} apart at most (tol {FIT_PARAM_TOL}) but "
               f"{sum(fit_cmp['rounding_elements'].values())} elements whose first moment is "
               f"rounding, {fit_cmp['rounding_max_abs']:.2e} apart at most (Adam's reach "
-              f"{fit_cmp['reach']:.1e}); fit {b['fit_s']:.2f} s against {a['fit_s']:.2f} s "
-              f"(waiting on the host's batch {b['wait_s']:.2f} s against {a['wait_s']:.2f} s), wall "
-              f"{b['wall_s']:.1f} s against {a['wall_s']:.1f} s", flush=True)
+              f"{fit_cmp['reach']:.1e})", flush=True)
         for r in fit_cmp["largest"]:
             print(f"    {r['leaf']}[{r['index']}]: {r['diff']:.3e} apart (value {r['param']:.4e}; "
                   f"exp_avg {r['exp_avg'][0]:.3e} / {r['exp_avg'][1]:.3e}, exp_avg_sq "
@@ -3360,7 +2611,7 @@ def kernel_line(records: list[dict], launches: dict) -> dict:
     out = []
     for name, (source, replaces) in meta.items():
         rs = [r for r in records if r["kernel"] == name]
-        ops_ms = sum(r["per_request"] * r["flops"] / PEAK_BF16_FLOPS * 1e3 for r in rs)
+        ops_ms = sum(r["per_request"] * r["flops"] / PEAK_BF16 * 1e3 for r in rs)
         bytes_ms = sum(r["per_request"] * r["bytes"] / PEAK_BYTES * 1e3 for r in rs)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3409,10 +2660,8 @@ def main() -> int:
 
     from conette_torch.kernels import _build
 
-    t0 = time.perf_counter()
     _build.library()
-    print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-          f"({_build.library_path().name})", flush=True)
+    print(f"phase 1: kernels built and loaded ({_build.library_path().name})", flush=True)
 
     print("phase 2: kernels vs plain versions, batch 8", flush=True)
     records = check_kernels(dev)
@@ -3421,13 +2670,11 @@ def main() -> int:
     build_dir = os.path.join(REPO, "build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as work:
-        summary, model = main_path(dev, work, smi)
-        print(f"  clips/s over the 3 requests: {summary['clips_per_s']:.2f}", flush=True)
+        summary, model = main_path(dev, work)
         print(f"phase 4: corpus serving, {CORPUS_FILES} WAV and FLAC files, batch 8", flush=True)
         served = serve_corpus(model, work)
         print("phase 8 (run here, while phase 4's corpus is on disk): the parallel layer", flush=True)
-        parallel = parallel_phase(os.path.join(work, "ckpt"), served, work, smi)
-        print(f"  phase 8 took {parallel['phase_s']:.1f} s", flush=True)
+        parallel = parallel_phase(os.path.join(work, "ckpt"), served, work)
         print("phase 5: export at batch 8 x 10 s, save, load, replay", flush=True)
         exported = export_phase(model, work)
         del model
@@ -3435,20 +2682,17 @@ def main() -> int:
               "then captioning from the run directory", flush=True)
         trained = training_phase(work)
         print("phase 7: prepare, host audio and the PANN encoders", flush=True)
-        t0 = time.perf_counter()
         prepared = prepare_phase(work)
-        prepared["phase_s"] = time.perf_counter() - t0
-        print(f"  phase 7 took {prepared['phase_s']:.1f} s", flush=True)
         print("phase 9: the encoders' training mode (ConvNeXt-Tiny and Cnn14 at full width)",
               flush=True)
-        enc_train = encoder_training_phase(smi)
-        print(f"  phase 9 took {enc_train['phase_s']:.1f} s", flush=True)
+        enc_train = encoder_training_phase()
 
     line = kernel_line(records, summary["launches"])
     for k in line["kernels"]:
         # wrapper launches: the warm-up and capture of each path's graphs;
         # replay_calls: the kernel's calls in a profiled replay of the path
-        k["replay_calls_per_request"] = summary["replayed_request"]["calls"][k["name"]]
+        k["replay_calls_per_request"] = summary["replay_calls"][k["name"]]
+        k["device_ms"] = summary["replay_kernel_device_ms"][k["name"]]
         k["serving_launches"] = served["launches"][k["name"]]
         k["serving_replay_calls"] = served["replay_calls"][k["name"]]
         k["export_launches"] = exported["launches"][k["name"]]

@@ -37,7 +37,7 @@ from conette_torch.models.conette import (
     encode_audio,
     forward_generate,
     forward_greedy,
-    tasks_to_bos_ids,
+    task_names_to_bos_ids,
 )
 from conette_torch.models.convnext import convnext_apply
 
@@ -119,18 +119,9 @@ def build_caption_fn(model: Any, beam_size: int | None = None,
 
 
 def _task_bos_map(model: Any) -> dict[str, int]:
-    out: dict[str, int] = {}
-    for task in model.config.task_names:
-        ds = task.split("_")[0]
-        src = "_".join(task.split("_")[1:]) or None
-        if model.model_cfg.task_mode == "ds_src":
-            ids = tasks_to_bos_ids(model.model_cfg, model.task_token_ids, [ds], [src])
-        elif model.model_cfg.task_mode == "ds":
-            ids = tasks_to_bos_ids(model.model_cfg, model.task_token_ids, [ds])
-        else:
-            ids = np.full((1,), model.model_cfg.bos_id, np.int32)
-        out[task] = int(ids[0])
-    return out
+    tasks = list(model.config.task_names)
+    ids = task_names_to_bos_ids(model.model_cfg, model.task_token_ids, tasks)
+    return {task: int(i) for task, i in zip(tasks, ids)}
 
 
 def export_caption_program(

@@ -10,12 +10,12 @@ caches of device constants), is then captured, and every later call with
 the same key copies its inputs into the graph's static buffers and
 replays it. A replay reads nothing back to the host.
 
-- Host inputs (numpy arrays or CPU tensors) are copied into the
-  program's pinned staging buffers and from there with
+- Host inputs (numpy arrays or CPU tensors) are copied into pinned
+  staging buffers, allocated anew for each call, and from there with
   ``non_blocking=True`` (a copy from pageable memory would wait for the
-  stream); an event marks when those copies have run, and the next call
-  waits on it (only if they have not) before it writes the staging buffers
-  again. Device inputs are copied on the device.
+  stream); the caching host allocator keeps a call's buffers from being
+  handed out again until the copies queued from them have run. Device
+  inputs are copied on the device.
 - The outputs are the graph's static tensors: the next replay of the same
   program overwrites them, so a caller copies out what it keeps.
 - :func:`run_in_batches` runs a program at a fixed batch: a request is
@@ -215,7 +215,6 @@ class CapturedProgram:
             with span("warmup"):
                 self.staging = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                                 for t in self.static_inputs]
-                self.copied = torch.cuda.Event()
                 self._copy_in(inputs)
                 stream = torch.cuda.current_stream(device)
                 side = torch.cuda.Stream(device)
@@ -240,8 +239,6 @@ class CapturedProgram:
     def _copy_in(self, inputs: Inputs) -> None:
         if len(inputs) != len(self.static_inputs):
             raise ValueError(f"expected {len(self.static_inputs)} inputs, got {len(inputs)}")
-        if not self.copied.query():  # the staging buffers' last copies are still queued
-            self.copied.synchronize()
         for dst, stage, x in zip(self.static_inputs, self.staging, inputs):
             src = _as_tensor(x)
             if src.shape != dst.shape or src.dtype != dst.dtype:
@@ -255,14 +252,12 @@ class CapturedProgram:
             elif src.device.type == "cpu":
                 src = stage.copy_(src)
             dst.copy_(src, non_blocking=True)
-        self.copied.record()
 
     def __call__(self, *inputs: Any) -> Any:
         with torch.inference_mode():
             with span("copy_in"):
                 self.staging = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                                 for t in self.static_inputs]
-                self.copied = torch.cuda.Event()
                 self._copy_in(inputs)
             with span("replay"):
                 self.graph.replay()

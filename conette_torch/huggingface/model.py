@@ -69,7 +69,7 @@ from conette_torch.models.conette import (
     encode_audio,
     forward_generate,
     forward_greedy,
-    tasks_to_bos_ids,
+    task_names_to_bos_ids,
 )
 from conette_torch.models.convnext import convnext_init
 from conette_torch.tokenization import AACTokenizer
@@ -244,15 +244,7 @@ class CoNeTTEModel:
         else:
             tasks = list(task)
         self._check_tasks(tasks)
-        datasets = [t.split("_")[0] for t in tasks]
-        sources = ["_".join(t.split("_")[1:]) if "_" in t else None for t in tasks]
-
-        if self.model_cfg.task_mode == "ds_src":
-            bos_np = tasks_to_bos_ids(self.model_cfg, self.task_token_ids, datasets, sources)
-        elif self.model_cfg.task_mode == "ds":
-            bos_np = tasks_to_bos_ids(self.model_cfg, self.task_token_ids, datasets)
-        else:
-            bos_np = np.full((bsize,), self.model_cfg.bos_id, np.int32)
+        bos_np = task_names_to_bos_ids(self.model_cfg, self.task_token_ids, tasks)
 
         beam = beam_size if beam_size is not None else self.config.beam_size
         min_p = min_pred_size if min_pred_size is not None else self.config.min_pred_size

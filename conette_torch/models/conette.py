@@ -169,6 +169,17 @@ def tasks_to_bos_ids(
     return np.asarray([task_token_ids[name] for name in names], np.int32)
 
 
+def task_names_to_bos_ids(
+    cfg: ConetteConfig, task_token_ids: dict[str, int], tasks: Sequence[str]
+) -> np.ndarray:
+    """``tasks_to_bos_ids`` of task names (``"wavcaps_freesound"``): each
+    split at its first ``_`` into dataset and source, no ``_`` meaning no
+    source (``"clotho"``)."""
+    datasets = [t.split("_")[0] for t in tasks]
+    sources = ["_".join(t.split("_")[1:]) if "_" in t else None for t in tasks]
+    return tasks_to_bos_ids(cfg, task_token_ids, datasets, sources)
+
+
 def forward_forcing(
     params: Params,
     cfg: ConetteConfig,

@@ -227,7 +227,7 @@ class RowDraws(NamedTuple):
     batch, so that work does not shrink with the number of processes. At
     the production step (batch 512, d_model 256, 6 layers) the draws' kernels
     take 0.49-0.50 ms on each of four H100s, as on one, of a 52-56 ms step
-    (``chip_smoke.multicard``).
+    (a profiled step on each card; ``CHANGES.md`` records the run).
     """
 
     gen: torch.Generator

@@ -50,7 +50,7 @@ from conette_torch.decoding.guard import counted
 from conette_torch.graphs import conditional_step
 from conette_torch.huggingface.model import CoNeTTEModel
 from conette_torch.huggingface.preprocessor import bucket_length
-from conette_torch.models.conette import encode_audio, forward_generate, tasks_to_bos_ids
+from conette_torch.models.conette import encode_audio, forward_generate, task_names_to_bos_ids
 from conette_torch.models.convnext import convnext_apply
 from conette_torch.native import loader as native_loader
 from conette_torch.ops.resample import resampled_length
@@ -127,15 +127,7 @@ def caption_corpus(
     def bos_for(chunk: list[int]) -> np.ndarray:
         chunk_tasks = [tasks[i] for i in chunk]
         chunk_tasks += [chunk_tasks[0]] * (batch_size - len(chunk_tasks))
-        datasets = [t.split("_")[0] for t in chunk_tasks]
-        sources = ["_".join(t.split("_")[1:]) or None for t in chunk_tasks]
-        if cfg.task_mode == "ds_src":
-            ids = tasks_to_bos_ids(cfg, model.task_token_ids, datasets, sources)
-        elif cfg.task_mode == "ds":
-            ids = tasks_to_bos_ids(cfg, model.task_token_ids, datasets)
-        else:
-            ids = np.full((batch_size,), cfg.bos_id, np.int32)
-        return ids
+        return task_names_to_bos_ids(cfg, model.task_token_ids, chunk_tasks)
 
     results: dict[int, CaptionResult] = {}
     pending: list[tuple[list[int], Any, list]] = []

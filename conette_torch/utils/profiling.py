@@ -45,8 +45,8 @@ TRACE_FILE = "trace.json"
 # graph replays alike (a request lost its log-mel kernel), whatever the
 # time between the window's start and the scope. So the window opens with
 # this many one-element kernels (``torch.cuda._sleep``'s, named
-# ``OPENING_KERNEL_NAME``), lost or kept in the scope's stead
-# (``scripts/_trace_window.py``).
+# ``OPENING_KERNEL_NAME``), lost or kept in the scope's stead (the card's
+# runs that found and sized it are in ``CHANGES.md``).
 OPENING_KERNELS = 2048
 OPENING_KERNEL_NAME = "spin_kernel"
 

@@ -2,7 +2,6 @@
 
     python3 scripts/_span_check.py trace <cell> <seed>   # a traced run of one cell, kept and read
     python3 scripts/_span_check.py read <cell>           # read what ``trace`` kept, anywhere
-    python3 scripts/_span_check.py cost                  # span cost and the decode counter
 
 ``trace`` runs ``benchmark/run.py``'s ``main`` with ``--trace 1 --seconds
 51`` in this process (its result line printed as the benchmark prints it)
@@ -19,29 +18,16 @@ misattributed the decode's kernels there). ``read`` prints from those:
   program's included (the benchmark's reduction over every annotation);
 - for training, the prefetch thread's spans over the loop's
   ``batch_wait`` spans and over the steps' ``train_step`` spans.
-
-``cost`` prints the host microseconds of a span (entered and left, one
-attribute) with no profiler and inside a recording ``profiling.profiler``,
-and, on ``chip_smoke``'s full-width model and one 8 x 10 s request, the
-decode program captured with the counted guard (``decoding/guard.py``, as
-``CoNeTTEModel._generate`` runs it) and without: the same bits, the steps
-counted, the replays' device times in ``chip_smoke.GUARD_TURNS`` turns, and
-a warm ``_generate(..., steps_out=)`` under
-``torch.cuda.set_sync_debug_mode("error")``. Each line carries the card's
-name and power limit.
 """
 
 from __future__ import annotations
 
-import functools
 import gzip
 import json
 import os
 import statistics
 import subprocess
 import sys
-import tempfile
-import time
 from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -185,79 +171,10 @@ def read(cell: str) -> int:
     return 0
 
 
-def cost() -> int:
-    sys.path.insert(0, ROOT)
-    import numpy as np
-    import torch
-
-    import chip_smoke as c
-    import conette_torch
-    from conette_torch.decoding.guard import counted
-    from conette_torch.graphs import GraphCache, conditional_step
-    from conette_torch.models.conette import encode_audio, forward_generate
-    from conette_torch.utils import profiling
-
-    def span_us(n: int) -> float:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            with profiling.span("cost", rows=8):
-                pass
-        return (time.perf_counter() - t0) / n * 1e6
-
-    span_us(20_000)
-    plain = min(span_us(200_000) for _ in range(5))
-    with profiling.profiler() as prof, profiling.active_step(prof):
-        profiled = span_us(20_000)
-    out = {"card": card(), "torch": torch.__version__, "span_us": plain, "span_us_profiled": profiled}
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
-        model = conette_torch.conette(c.build_model(work), compute_dtype=torch.bfloat16)
-        dev, cfg = model.device, model.model_cfg
-        wav, lens = model.preprocessor.load_resample(c.make_clips(np.random.default_rng(3), c.BATCH, 10.0, 44100),
-                                                     44100)
-        audio, a_lens, _ = model.preprocessor.encode(wav, lens)
-        audio = audio.float()
-        bos = torch.from_numpy(c.bos_ids(model, ["clotho", "audiocaps"] * 4)).to(dev)
-
-        def search(audio, a_lens, bos, count):
-            memory, pad = encode_audio(model.params, cfg, audio, a_lens)
-            steps = torch.zeros((), dtype=torch.int64, device=dev)
-            guard = counted(conditional_step, steps) if count else conditional_step
-            res = forward_generate(model.params, cfg, memory, pad, bos, forbid_rep_mask=model.forbid_rep_mask,
-                                   guard=guard)
-            return (*res, steps.expand(len(audio)))
-
-        names = ("guarded", "counted")
-        cache = GraphCache(len(names))
-        outs = {name: [t.clone() for t in cache.run((name,), functools.partial(search, count=name == "counted"),
-                                                     (audio, a_lens, bos), dev)] for name in names}
-        torch.cuda.synchronize()
-        timed = c.paired_replays_ms({name: cache.programs[(name,)] for name in names})
-        args = (audio, a_lens, bos, model.forbid_rep_mask, cfg.beam_size, cfg.min_pred_size, cfg.max_pred_size)
-        model._generate(*args)
-        torch.cuda.synchronize()
-        steps: list = []
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            model._generate(*args, steps_out=steps)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        out["counter"] = {"same_bits": c.outputs_same_bits(outs["guarded"][:4], outs["counted"][:4]),
-                          "steps_counted": int(outs["counted"][4][0]), "model_steps": int(steps[0][0]),
-                          "sync_check": "no host sync", "median_ms": timed["median"], "min_ms": timed["min"],
-                          "ratio_median": timed["ratio_median"], "diff_median_ms": timed["diff_median_ms"]}
-    print(json.dumps(out), flush=True)
-    return 0
-
-
 if __name__ == "__main__":
     mode = sys.argv[1] if len(sys.argv) > 1 else ""
     if mode == "trace" and len(sys.argv) == 4:
         sys.exit(trace(sys.argv[2], sys.argv[3]))
     if mode == "read" and len(sys.argv) == 3:
         sys.exit(read(sys.argv[2]))
-    if mode == "cost" and len(sys.argv) == 2:
-        sys.exit(cost())
     sys.exit(__doc__)

@@ -17,12 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import counted, eos_schedule, outputs_same_bits, target_lengths
 from conette_torch.decoding.beam import beam_search
 from conette_torch.decoding.greedy import greedy_search
-from conette_torch.decoding.guard import every_step
+from conette_torch.decoding.guard import counted, every_step
 from conette_torch.graphs import GraphCache, conditional_step
 from conette_torch.models import decoder as td
+from torch_fixtures import eos_schedule, outputs_same_bits, target_lengths
 
 B, T_MEM, MAX_P, MIN_P = 8, 31, 20, 3
 CFG = td.DecoderConfig(vocab_size=4000)

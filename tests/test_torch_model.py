@@ -17,6 +17,12 @@ from conette_tpu.tokenization import AACTokenizer as JaxTokenizer
 import conette_torch
 from conette_torch.huggingface.config import CoNeTTEConfig
 from conette_torch.huggingface.model import CoNeTTEModel
+from conette_torch.models.conette import (
+    ConetteConfig,
+    add_task_tokens,
+    task_names_to_bos_ids,
+    tasks_to_bos_ids,
+)
 from conette_torch.models.convnext import convnext_init
 from conette_torch.predict import main_predict
 from conette_torch.tokenization import AACTokenizer
@@ -113,6 +119,28 @@ def test_unported_loaders_raise(tmp_path):
     audio, sr = load_audio(str(flac))
     assert sr == 16000 and audio.shape == (1, 4000)
     assert np.abs(audio[0] - x).max() <= 1 / 32768
+
+
+@pytest.mark.parametrize("task_mode", ["ds_src", "ds", "none"])
+def test_task_names_map_as_tasks_to_bos_ids(task_mode):
+    """``task_names_to_bos_ids`` gives ``tasks_to_bos_ids``'s ids for the
+    names split into dataset and source ("clotho" has none), in each task
+    mode: "ds" reads the dataset alone, "none" gives ``bos_id`` to all."""
+    names = ("clotho", "audiocaps", "macs", "wavcaps_freesound", "wavcaps")
+    tok = AACTokenizer()
+    tok.fit(CORPUS)
+    cfg = ConetteConfig(vocab_size=64, task_mode=task_mode, task_names=names)
+    ids = add_task_tokens(tok, names, task_mode)
+    tasks = ["wavcaps_freesound", "clotho", "macs", "audiocaps", "wavcaps_freesound"]
+    want = tasks_to_bos_ids(cfg, ids, ["wavcaps", "clotho", "macs", "audiocaps", "wavcaps"],
+                            ["freesound", None, None, None, "freesound"])
+    got = task_names_to_bos_ids(cfg, ids, tasks)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
+    if task_mode == "none":
+        assert (got == cfg.bos_id).all()
+    else:
+        assert len(set(got.tolist())) == 4
 
 
 def test_frame_embedding_input_matches_jax(saved):

@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_batch_norms
 from conette_tpu.models import pann as jax_pann
 from conette_tpu.models import pann_zoo as jax_zoo
 from conette_torch.models import pann, pann_zoo
@@ -23,6 +22,7 @@ from conette_torch.native import loader
 from conette_torch.weights import to_numpy, to_torch
 from test_torch_pann_train import assert_train_close
 from test_torch_pann_zoo import _wave, assert_outputs_close
+from torch_fixtures import random_batch_norms
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

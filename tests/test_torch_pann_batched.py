@@ -17,11 +17,11 @@ import pytest
 import torch
 
 from benchmark.reference import pann as ref_pann
-from chip_smoke import random_batch_norms
 from conette_tpu.models import pann as jax_pann
 from conette_torch.models import pann
 from conette_torch.ops.stft import frame_rows, frame_signal
 from conette_torch.weights import to_numpy, to_torch
+from torch_fixtures import random_batch_norms
 
 TOL = 1e-6
 CHANNELS = {"cnn14": (8, 8, 16, 16, 32, 32), "cnn10": (8, 8, 16, 16), "cnn14_att": (8, 8, 16, 16, 32, 32)}

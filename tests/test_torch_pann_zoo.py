@@ -28,7 +28,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_batch_norms
 from conette_tpu.huggingface.convert import save_params_npz as jax_save_npz
 from conette_tpu.models import pann as jax_pann
 from conette_tpu.models.conette import ConetteConfig, conette_init
@@ -36,6 +35,7 @@ from conette_tpu.models.convnext import convnext_init
 from conette_torch.huggingface.convert import flatten_pytree, save_params_npz
 from conette_torch.models import pann, pann_zoo
 from conette_torch.weights import load_tree, named_leaves, to_numpy, to_torch
+from torch_fixtures import random_batch_norms
 
 ZOO_NAMES = sorted({
     "cnn6", "cnn14_decisionlevelavg", "cnn14_decisionlevelmax", "dainet19", "leenet11",

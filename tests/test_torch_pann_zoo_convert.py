@@ -15,7 +15,7 @@ its architectures' three checks, which share JAX's compiled inits.
   generators of ``tests/test_convert_pann.py`` for the eleven
   architectures it covers and the ones below for the rest; every converted
   tree equals JAX's bit for bit. It also goes back through
-  ``chip_smoke.reference_pann_state``, the converter's inverse with which
+  ``torch_fixtures.reference_pann_state``, the converter's inverse with which
   the card run stages its registry checkpoints, and must convert to itself.
 - ``load_registry_pann``: a generated state dict saved under the entry's
   file name in ``CONETTE_CKPT_DIR`` loads to JAX's conversion of it.
@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import reference_pann_state
 from conette_tpu.huggingface.convert_pann import convert_pann as jax_convert_pann
 from conette_tpu.models import pann as jax_pann
 from conette_torch.huggingface import convert_pann
@@ -43,6 +42,7 @@ from test_convert_pann import (
     _pre_wav_block_sd,
     _wavegram_sd,
 )
+from torch_fixtures import reference_pann_state
 
 
 def _cnn14_variant_sd(rng, n_mels=64, emb=None):

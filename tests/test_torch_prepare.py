@@ -308,7 +308,7 @@ PANN_CHANNELS = {"resample_mean_cnn14": (8, 8, 16, 16, 32, 32), "resample_mean_c
 
 def pann_tree(audio_t: str) -> dict:
     """A toy Cnn tree of the frontend's structure, batch norms drawn."""
-    from chip_smoke import random_batch_norms
+    from torch_fixtures import random_batch_norms
     from conette_torch.models import pann
     from conette_torch.weights import to_numpy
 

@@ -26,7 +26,13 @@ from conette_torch.data.prefetch import prefetch_iterator
 from conette_torch.huggingface import model as hf_model
 from conette_torch.huggingface.config import CoNeTTEConfig
 from conette_torch.huggingface.model import CoNeTTEModel
-from conette_torch.models.conette import conette_init, encode_audio, forward_generate, forward_greedy
+from conette_torch.models.conette import (
+    conette_init,
+    encode_audio,
+    forward_generate,
+    forward_greedy,
+    tasks_to_bos_ids,
+)
 from conette_torch.models.convnext import convnext_init
 from conette_torch.native import loader
 from conette_torch.tokenization import AACTokenizer
@@ -305,7 +311,7 @@ def test_forward_is_bit_for_bit_with_the_recorder_and_counts_its_steps(tiny_mode
     with torch.inference_mode():
         frames, n, clip = pre._encode(torch.from_numpy(wav), torch.from_numpy(lens))
         memory, pad = encode_audio(model.params, model.model_cfg, frames, n)
-        bos = torch.as_tensor(hf_model.tasks_to_bos_ids(
+        bos = torch.as_tensor(tasks_to_bos_ids(
             model.model_cfg, model.task_token_ids, ["clotho"] * 2, [None] * 2)).long()
         if beam > 1:
             res = forward_generate(model.params, model.model_cfg, memory, pad, bos, beam_size=beam,
