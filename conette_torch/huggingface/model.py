@@ -60,7 +60,7 @@ from conette_torch.graphs import GraphCache, conditional_step
 from conette_torch.huggingface.audioset import load_audioset_names, probs_to_names
 from conette_torch.huggingface.config import CoNeTTEConfig
 from conette_torch.huggingface.convert import convert_torch_checkpoint, load_params_npz
-from conette_torch.huggingface.preprocessor import BUCKETS_S, AudioInput, CoNeTTEPreprocessor
+from conette_torch.huggingface.preprocessor import BUCKETS_S, AudioInput, CoNeTTEPreprocessor, HostBatches
 from conette_torch.models.conette import (
     ConetteConfig,
     add_task_tokens,
@@ -83,6 +83,11 @@ pylog = logging.getLogger(__name__)
 # serving.caption_corpus at one batch size and beam. Other settings take
 # the place of the least recently used.
 MAX_MODEL_GRAPHS = 2 * len(BUCKETS_S)
+# the host batch buffers of serving.caption_corpus kept on the model: a pair
+# for each (rows, bucket length), at most this many (a pair at 32 rows of the
+# 30 s bucket holds 246 MB); a corpus of more buckets allocates its buffers
+# anew.
+MAX_HOST_BATCH_SHAPES = 4
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -173,6 +178,7 @@ class CoNeTTEModel:
         )
         self.params = to_torch(model_params, self.device)
         self.graphs = GraphCache(MAX_MODEL_GRAPHS)
+        self.host_batches = HostBatches(MAX_HOST_BATCH_SHAPES)
 
         self.forbid_rep_mask = None
         if fit:

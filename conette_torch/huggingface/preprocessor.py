@@ -23,6 +23,7 @@ them or cut into chunks of them), captured on first use and replayed after
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Iterable, Union
 
 import numpy as np
@@ -47,6 +48,28 @@ MAX_ENCODER_GRAPHS = len(BUCKETS_S)
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 AudioInput = Union[str, ArrayLike, Iterable[str], Iterable[ArrayLike]]
+
+
+class HostBatches:
+    """Host batch buffers kept from call to call: a pair of float32
+    (rows, samples) arrays for each of at most ``max_shapes`` shapes, the
+    least recently used shape dropped first. ``take(shape, k)`` gives the
+    pair's array ``k % 2``, so that batch k + 1 can be filled while batch k
+    is still read."""
+
+    def __init__(self, max_shapes: int) -> None:
+        self.max_shapes = max_shapes
+        self.pairs: collections.OrderedDict[tuple[int, int], tuple[np.ndarray, np.ndarray]] = \
+            collections.OrderedDict()
+
+    def take(self, shape: tuple[int, int], k: int) -> np.ndarray:
+        pair = self.pairs.pop(shape, None)
+        if pair is None:
+            pair = (np.empty(shape, np.float32), np.empty(shape, np.float32))
+        self.pairs[shape] = pair
+        while len(self.pairs) > self.max_shapes:
+            self.pairs.popitem(last=False)
+        return pair[k % 2]
 
 
 def bucket_length(n_samples: int, sr: int = TARGET_SR) -> int:
@@ -93,15 +116,18 @@ class CoNeTTEPreprocessor:
         self,
         x: AudioInput,
         sr: Union[None, int, Iterable[int]] = None,
+        *,
+        out: np.ndarray | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """→ (waveforms (B, T_max) float32 mono at 32 kHz, lengths (B,))."""
+        """→ (waveforms (B, T_max) float32 mono at 32 kHz, lengths (B,)).
+        With ``out``, the waveforms are laid into it (:meth:`_pad_stack`)."""
         if isinstance(x, str):
             x = [x]
         if isinstance(x, Iterable) and not hasattr(x, "shape"):
             x = list(x)
 
         if isinstance(x, list) and len(x) > 0 and isinstance(x[0], str):
-            return self._pad_stack(native_loader.load_batch(x, TARGET_SR))
+            return self._pad_stack(native_loader.load_batch(x, TARGET_SR), out)
         if hasattr(x, "shape"):
             arr = _as_numpy(x)
             if arr.ndim == 1:
@@ -134,12 +160,24 @@ class CoNeTTEPreprocessor:
             rs.set(**max((native_loader.taps_attrs(r, TARGET_SR) for r in set(srs)),
                          key=lambda t: t["band_taps"]))
             mono = native_loader.resample_batch(waves, srs, TARGET_SR)
-        return self._pad_stack(mono)
+        return self._pad_stack(mono, out)
 
     @span("pad_bucket")
-    def _pad_stack(self, mono: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
-        """Mono clips → (B, padded length) zero-padded batch and (B,) lengths."""
+    def _pad_stack(self, mono: list[np.ndarray], out: np.ndarray | None = None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """Mono clips → (B, padded length) zero-padded batch and (B,) lengths.
+        With ``out``, a float32 (B' >= B, S) buffer that may hold an earlier
+        batch: each clip is copied into its row cut at S, and everything
+        after the clips zeroed, by numpy on the calling thread; → ``out``
+        and the (B,) lengths kept."""
         lens = np.asarray([len(m) for m in mono], np.int64)
+        if out is not None:
+            lens = np.minimum(lens, out.shape[1])
+            for row, m, n in zip(out, mono, lens):
+                row[:n] = m[:n]
+                row[n:] = 0.0
+            out[len(mono):] = 0.0
+            return out, lens
         max_len = int(lens.max())
         pad_len = bucket_length(max_len) if self.use_buckets else max_len
         batch = np.zeros((len(mono), pad_len), np.float32)

@@ -8,7 +8,9 @@ compiler flags and the filter bank's math of the JAX package's
 taps, from a bank built once for each pair of rates and shared by the
 threads (:func:`resample_taps` counts them). The ctypes calls release the
 GIL, so :func:`load_batch` decodes a corpus, and :func:`resample_batch`
-resamples arrays, on a pool of ``WORKERS`` threads.
+resamples arrays, on a pool of ``WORKERS`` threads; :func:`load_ahead`
+runs a caller's batch loads one batch ahead of it on a thread of its own
+(the corpus path's and prepare's).
 
 On first use the source is compiled with the host's ``g++`` and the flags of
 ``native/Makefile`` into ``build/conette_torch/`` at the repository root.
@@ -38,8 +40,9 @@ import subprocess
 import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Iterator, Sequence, TypeVar
 
 import numpy as np
 
@@ -243,6 +246,41 @@ def load_batch(paths: Sequence[str], target_sr: int, workers: int = WORKERS) -> 
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
             return list(pool.map(load, paths))
+
+
+T = TypeVar("T")
+R = TypeVar("R")
+
+
+@contextmanager
+def load_ahead(chunks: Sequence[T], load: Callable[[T], R]) -> Iterator[Iterator[R]]:
+    """An iterator over ``load(chunk)`` of each of ``chunks``, in order, each
+    run on a thread of its own one chunk ahead of the caller: chunk k + 1
+    loads while the caller uses chunk k's, and nothing past the last chunk
+    is loaded. Each load is a span ``load_ahead`` under the span open where
+    this is entered (``load`` sets its attributes through ``current()``);
+    each wait for one, a span ``load_wait`` on the caller's thread. A load's
+    error raises where its chunk is waited for; the thread is joined on
+    leaving, whatever the way out."""
+    parent = current()
+
+    def run(chunk: T) -> R:
+        with span("load_ahead", parent=parent):
+            return load(chunk)
+
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="load_ahead") as ahead:
+        loading = ahead.submit(run, chunks[0]) if chunks else None
+
+        def loaded() -> Iterator[R]:
+            nonlocal loading
+            for k in range(len(chunks)):
+                with span("load_wait"):
+                    out = loading.result()
+                if k + 1 < len(chunks):
+                    loading = ahead.submit(run, chunks[k + 1])
+                yield out
+
+        yield loaded()
 
 
 def resample_batch(clips: Sequence[np.ndarray], rates: Sequence[int], target_sr: int) -> list[np.ndarray]:

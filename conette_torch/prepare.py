@@ -29,7 +29,8 @@ Run as ``python -m conette_torch.prepare --audio_dir D --captions_csv C
 Spans (``utils/profiling.py``): a root ``pack_dataset`` (``files``,
 ``batch``) around the encoding and the write; on the Cnn route, each
 batch's ``load_ahead`` on a thread of its own (the loader's
-``native_load``, its ``load_file`` spans on the pool), ``pann_encode``
+``native_load``, its ``load_file`` spans on the pool) and a ``load_wait``
+around each wait for one, ``pann_encode``
 (``rows``, ``padded_frames``) and ``pack_collect`` (the rows' copy to the
 host), with the counters ``pann_valid_frames`` and ``pann_pad_frames``, the
 mel frames computed inside and past the rows' lengths; ``pack_write``
@@ -302,23 +303,18 @@ class PannFrontend:
         """The items' frame embeddings, in order: each batch of
         ``batch_size`` files loaded on a thread of its own (a ``load_ahead``
         span under the caller's, holding the loader's ``native_load``) while
-        the card encodes the batch before it."""
-        from concurrent.futures import ThreadPoolExecutor
-
-        parent = current()
+        the card encodes the batch before it (``native.loader.load_ahead``,
+        with a ``load_wait`` around each wait for a batch)."""
+        from conette_torch.native.loader import load_ahead
 
         def load(chunk: list[int]) -> list[np.ndarray]:
-            with span("load_ahead", parent=parent, files=len(chunk)):
-                return self.load(dataset, chunk)
+            current().set(files=len(chunk))
+            return self.load(dataset, chunk)
 
         chunks = [indexes[start : start + batch_size] for start in range(0, len(indexes), batch_size)]
         out: list[np.ndarray] = []
-        with ThreadPoolExecutor(max_workers=1) as ahead:
-            loading = ahead.submit(load, chunks[0]) if chunks else None
-            for k in range(len(chunks)):
-                monos = loading.result()
-                if k + 1 < len(chunks):
-                    loading = ahead.submit(load, chunks[k + 1])
+        with load_ahead(chunks, load) as loaded:
+            for monos in loaded:
                 for at in range(0, len(monos), self.MAX_ROWS):
                     out.extend(self.encode(monos[at : at + self.MAX_ROWS]))
         return out

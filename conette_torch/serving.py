@@ -21,10 +21,17 @@ tokens of a batch are copied to pinned host memory behind its replay, and
 detokenized while the next batch's replay runs, as the JAX package
 drains the previous batch while the next one is dispatched.
 
+Each batch's files are loaded in one call on the native loader's pool, on
+a thread of its own one batch ahead of the card, into one of a pair of host
+buffers kept on the model for each batch shape (``model.host_batches``).
+
 A call is one root span ``caption_corpus`` (``utils/profiling.py``):
-``bucket_pass`` with a ``wav_info`` a header, a ``load_resample`` a file,
-``caption_batch`` a batch, and ``drain`` (its ``readback``, with the steps
-the search ran, and ``detokenize``).
+``bucket_pass`` with a ``wav_info`` a header; a ``load_ahead`` a batch
+(``files``, ``rows``) on the loading thread, holding its ``load_resample``
+(``native_load`` with a ``load_file`` a file on the pool, then
+``pad_bucket``); on the caller's thread a ``load_wait`` around each wait
+for a batch, ``caption_batch`` a batch, and ``drain`` (its ``readback``,
+with the steps the search ran, and ``detokenize``).
 
 Over a device mesh (``parallel/mesh.py``, one process a card) the rows of
 each batch are split over its ``data`` dim, with the parameters whole on
@@ -147,18 +154,32 @@ def caption_corpus(
                 )
 
     rows = slice(data.rank * (batch_size // data.size), (data.rank + 1) * (batch_size // data.size))
-    for blen, idxs in sorted(buckets.items()):
-        for start in range(0, len(idxs), batch_size):
-            chunk = idxs[start : start + batch_size]
-            mine = range(batch_size)[rows]
-            wav = np.zeros((len(mine), blen), np.float32)
-            lens = np.full((len(mine),), blen, np.int64)
-            for row, j in enumerate(mine):
-                if j < len(chunk):
-                    w, wl = pre.load_resample(paths[chunk[j]])
-                    m = min(int(wl[0]), blen)
-                    wav[row, :m] = w[0, :m]
-                    lens[row] = m
+    mine = range(batch_size)[rows]
+    plan = [(blen, idxs[start : start + batch_size])
+            for blen, idxs in sorted(buckets.items()) for start in range(0, len(idxs), batch_size)]
+
+    def load(batch: tuple[int, tuple[int, list[int]]]) -> tuple[np.ndarray, np.ndarray]:
+        """Batch k's rows of this process in a kept buffer: each file's
+        samples cut at the bucket's length, zeros after them and in the
+        rows with no file (whose length is the bucket's)."""
+        k, (blen, chunk) = batch
+        files = [paths[chunk[j]] for j in mine if j < len(chunk)]
+        current().set(files=len(files), rows=len(mine))
+        # the pair's buffers in turn: batch k + 1 is laid into the other one
+        # while the caller reads this one, and batch k + 2 into this one only
+        # after caption_batch has returned for batch k, which has copied it by
+        # then (numpy's synchronous copy into the program's pinned staging;
+        # on the CPU the batch is computed before it returns)
+        wav = model.host_batches.take((len(mine), blen), k)
+        lens = np.full((len(mine),), blen, np.int64)
+        if files:
+            lens[: len(files)] = pre.load_resample(files, out=wav)[1]
+        else:
+            wav[:] = 0.0
+        return wav, lens
+
+    with native_loader.load_ahead(list(enumerate(plan)), load) as loaded:
+        for (_, chunk), (wav, lens) in zip(plan, loaded):
             bos = bos_for(chunk)[rows]
             steps: list[torch.Tensor] = []
             pending.append((chunk, caption_batch(model, wav, lens, bos, beam, steps_out=steps), steps))

@@ -107,6 +107,8 @@ PARAMS_APART = {
         set(), {"config"}, "a config in place of the saved one (conette(config_kwds=), ROADMAP)"),
     ("huggingface/preprocessor.py", "CoNeTTEPreprocessor.__init__"): (
         {"verbose"}, {"device"}, "no log switch; the device, as every entry point takes it"),
+    ("huggingface/preprocessor.py", "CoNeTTEPreprocessor.load_resample"): (
+        set(), {"out"}, "a kept host buffer that serving.caption_corpus lays each batch into"),
     ("parallel/distributed.py", "initialize"): (
         set(), {"local_rank", "device", "backend", "timeout_s"},
         "torch.distributed's group: its device, backend and timeout"),
