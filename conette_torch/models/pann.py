@@ -22,7 +22,10 @@ frontend is the plain one (``ops/frontend.py``), as in the JAX package.
 ``PANN_ZOO_NAMES``; the other architectures and the decision-level
 max/avg heads live in ``models/pann_zoo.py``. ``pann_frames_masked``
 gives the Cnn family's frame embeddings of a padded batch of clips of
-several lengths, each row what ``pann_apply`` gives the clip alone.
+several lengths, each row what ``pann_apply`` gives the clip alone; its
+masked log-mel (``logmel_masked``), ConvBlocks (``conv_blocks_masked``)
+and batch norm (``bn_relu_masked_``) also serve Wavegram_Logmel_Cnn14's
+masked batch (``pann_zoo.wavegram_logmel_cnn14_frames_masked``).
 
 Training mode (``deterministic=False``), as in the JAX package: every
 batch norm normalises with the batch's statistics (``conv_block`` returns
@@ -253,10 +256,48 @@ def pann_apply(
 
 
 def _zero_past(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(B, C, T, F) ``x`` with each row's time steps from ``valid`` on set
+    """``x`` (B, C, T, ...) with each row's time steps from ``valid`` on set
     to zero, in place."""
     keep = torch.arange(x.shape[2], device=x.device) < valid[:, None]
-    return x.mul_(keep[:, None, :, None].to(x.dtype))
+    return x.mul_(keep.view(keep.shape[0], 1, keep.shape[1], *(1,) * (x.ndim - 3)).to(x.dtype))
+
+
+def bn_relu_masked_(bn: Params, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Inference batch norm over the channels (axis 1) of ``x`` (B, C, T,
+    ...), then ReLU, then each row zeroed past ``valid``, in place: the
+    batch norm's shift and the ReLU would make the padding non-zero."""
+    scale = bn["weight"].float() * torch.rsqrt(bn["running_var"].float() + 1e-5)
+    shift = bn["bias"].float() - bn["running_mean"].float() * scale
+    shape = (-1,) + (1,) * (x.ndim - 2)
+    return _zero_past(torch.relu_(x.mul_(scale.view(shape)).add_(shift.view(shape))), valid)
+
+
+def conv_blocks_masked(blocks: list[Params], x: torch.Tensor, valid: torch.Tensor, pools: int,
+                       pool: tuple[int, int] = (2, 2)) -> tuple[torch.Tensor, torch.Tensor]:
+    """PANN ConvBlocks over NCHW ``x`` whose rows hold ``valid`` time steps,
+    zeros after: each 3×3 convolution's output after its batch norm and
+    ReLU, and the average ``pool``'s output after each of the first
+    ``pools`` blocks, zeroed past the row's time steps (floored by each
+    pool). → (x, the rows' time steps)."""
+    for i, block in enumerate(blocks):
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+            w = block[conv]["weight"].float().permute(3, 2, 0, 1)  # HWIO → OIHW
+            x = bn_relu_masked_(block[bn], F.conv2d(x, w, block[conv]["bias"].float(), padding=1), valid)
+        if i < pools:
+            valid = valid // pool[0]
+            x = _zero_past(F.avg_pool2d(x, pool), valid)
+    return x, valid
+
+
+def logmel_masked(bn0: Params, waveform: torch.Tensor, lens: torch.Tensor,
+                  logmel_cfg: LogMelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """bn0(log-mel) of zero-padded rows of ``lens`` samples as (B, 1, T,
+    mels), each row's frames centred with reflect padding at its own end
+    and zeroed past its ``1 + lens // hop`` frames. → (x, those frames)."""
+    frames = frame_rows(waveform.float(), lens, logmel_cfg.n_fft, logmel_cfg.hop_length)
+    mel = batch_norm_inference(bn0, power_to_logmel(frames_power(frames, logmel_cfg.n_fft), logmel_cfg))
+    valid = 1 + lens // logmel_cfg.hop_length
+    return _zero_past(mel[:, None], valid), valid
 
 
 def pann_frames_masked(
@@ -290,21 +331,8 @@ def pann_frames_masked(
         raise ValueError(f"a clip shorter than {(2 ** pools - 1) * logmel_cfg.hop_length} samples has no "
                          f"frame left after the encoder's {pools} pools")
     lens = waveform_lens.to(waveform.device, torch.long)
-    frames = frame_rows(waveform.float(), lens, logmel_cfg.n_fft, logmel_cfg.hop_length)
-    mel = batch_norm_inference(params["bn0"], power_to_logmel(frames_power(frames, logmel_cfg.n_fft),
-                                                              logmel_cfg))
-    valid = 1 + lens // logmel_cfg.hop_length
-    x = _zero_past(mel[:, None], valid)  # (B, 1, T, F)
-    for i, block in enumerate(params["blocks"]):
-        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
-            w = block[conv]["weight"].float().permute(3, 2, 0, 1)  # HWIO → OIHW
-            x = F.conv2d(x, w, block[conv]["bias"].float(), padding=1)
-            scale = block[bn]["weight"].float() * torch.rsqrt(block[bn]["running_var"].float() + 1e-5)
-            shift = block[bn]["bias"].float() - block[bn]["running_mean"].float() * scale
-            x = _zero_past(torch.relu_(x.mul_(scale[:, None, None]).add_(shift[:, None, None])), valid)
-        if i < pools:
-            valid = valid // 2
-            x = _zero_past(F.avg_pool2d(x, 2), valid)
+    x, valid = logmel_masked(params["bn0"], waveform, lens, logmel_cfg)  # (B, 1, T, F)
+    x, valid = conv_blocks_masked(params["blocks"], x, valid, pools)
     embs = x.mean(dim=3)  # (B, C, T'): the frequency mean
     if "att" in params:
         from conette_torch.models.pann_zoo import _pool1d_same

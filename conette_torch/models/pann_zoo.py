@@ -13,6 +13,10 @@ parameter trees, so that both packages load one weight tree
 - Cnn6 (one 5×5 conv a block);
 - Wavegram_Cnn14, Wavegram_Logmel_Cnn14 and its 128-mel variant: a strided
   1-D conv front on the waveform, reshaped into a (T, 32 or 64) map;
+  ``wavegram_logmel_cnn14_frames_masked`` gives Wavegram_Logmel_Cnn14's
+  frame embeddings of a padded batch of clips of several lengths, NCW and
+  NCHW, each row what the per-clip forward gives that clip alone
+  (``conette-prepare``'s route);
 - the raw-waveform LeeNet11/24, DaiNet19 and Res1dNet31/51;
 - the Cnn14_DecisionLevelMax/Avg heads over Cnn14's body.
 
@@ -46,14 +50,19 @@ from conette_torch.models.layers import (
 )
 from conette_torch.models.pann import (
     PANN_LOGMEL,
+    _zero_past,
     avg_pool_nhwc,
+    bn_relu_masked_,
     clip_head,
     conv_block,
     conv_block_init,
+    conv_blocks_masked,
     frame_lens,
+    logmel_masked,
     pann_apply,
 )
 from conette_torch.ops.frontend import LogMelConfig, logmel_spectrogram
+from conette_torch.utils.profiling import count, span
 
 NUM_CLASSES = 527
 
@@ -430,6 +439,69 @@ def wavegram_logmel_cnn14_apply(
     x = torch.cat([x[:, :t_min, :f_min], a[:, :t_min, :f_min]], dim=-1)
     x = _cnn14_tail(params["blocks"][1:], x, det)
     return _outputs(params, x, waveform.shape[-1], waveform_lens)
+
+
+def wavegram_logmel_cnn14_frames_masked(
+    params: Params,
+    waveform: torch.Tensor,
+    waveform_lens: torch.Tensor,
+) -> dict[str, torch.Tensor]:
+    """Wavegram_Logmel_Cnn14's frame embeddings of a batch of clips of
+    several lengths, in inference mode: ``{frame_embs (B, 2048, T'max),
+    frame_embs_lens (B,)}``, each row's first T' frames what
+    :func:`wavegram_logmel_cnn14_apply` gives that clip alone, zeros after.
+
+    ``waveform`` (B, S) holds each clip's ``waveform_lens`` samples, zeros
+    after; S may be any length at least the longest (a length bucket). As
+    in ``pann.pann_frames_masked``, every map is zeroed past the row's own
+    time steps wherever a batch norm's shift, a ReLU or a pool would
+    otherwise carry the padding into the row's last steps. The wavegram
+    branch runs NCW under a ``wavegram`` span (``rows``, ``samples``): the
+    stride-5 conv leaves ``(n - 1) // 5 + 1`` steps of a clip of n
+    samples, each max pool of 4 floors them by 4, and ``pre_block4``'s
+    (2, 1) pool by 2; the log-mel branch keeps ``1 + n // hop`` frames,
+    halved by its first block's pool. The join keeps, for each row, the
+    lesser of its two lengths, and Cnn14's blocks 2-6 floor it by their
+    four pools. The counters ``wavegram_valid_samples`` and
+    ``wavegram_pad_samples`` count the samples the branch computes inside
+    and past the rows' lengths. A clip too short to leave a frame raises
+    ``ValueError``."""
+    host_lens = waveform_lens.long().cpu()
+    tail = len(params["blocks"]) - 2  # the pools of blocks 2-6: none after the last
+    joined = torch.minimum(((host_lens - 1) // 5 + 1) // 128, (1 + host_lens // PANN_LOGMEL.hop_length) // 2)
+    if not bool((joined >> tail > 0).all()):
+        raise ValueError(f"a clip of {int(host_lens.min())} samples has no frame left after "
+                         f"Wavegram_Logmel_Cnn14's pools")
+    rows, samples = waveform.shape
+    lens = waveform_lens.to(waveform.device, torch.long)
+
+    def conv1d(p: Params, a: torch.Tensor, **kw) -> torch.Tensor:
+        return F.conv1d(a, p["weight"].float().permute(2, 1, 0), **kw)  # WIO → OIW
+
+    with span("wavegram", rows=rows, samples=samples):
+        valid = (lens - 1) // 5 + 1
+        a = bn_relu_masked_(params["pre_bn0"], conv1d(params["pre_conv0"], waveform.float()[:, None],
+                                                      stride=5, padding=5), valid)
+        for name in ("pre_block1", "pre_block2", "pre_block3"):
+            p = params[name]
+            a = bn_relu_masked_(p["bn1"], conv1d(p["conv1"], a, padding=1), valid)
+            a = bn_relu_masked_(p["bn2"], conv1d(p["conv2"], a, padding=2, dilation=2), valid)
+            valid = valid // 4
+            a = _zero_past(F.max_pool1d(a, 4), valid)
+        b, c, t = a.shape
+        # (B, C3, T) → (B, 4, T, C3/4): channel g·C3/4 + f is group g's "frequency" f
+        a = a.reshape(b, 4, c // 4, t).transpose(2, 3)
+        a, valid = conv_blocks_masked([params["pre_block4"]], a, valid, 1, pool=(2, 1))
+        n_valid = int(host_lens.sum())
+        count("wavegram_valid_samples", n_valid)
+        count("wavegram_pad_samples", rows * samples - n_valid)
+    x, mel_valid = logmel_masked(params["bn0"], waveform, lens, PANN_LOGMEL)
+    x, mel_valid = conv_blocks_masked(params["blocks"][:1], x, mel_valid, 1)
+    t, f = min(x.shape[2], a.shape[2]), min(x.shape[3], a.shape[3])
+    valid = torch.minimum(valid, mel_valid)
+    x = _zero_past(torch.cat([x[:, :, :t, :f], a[:, :, :t, :f]], dim=1), valid)
+    x, valid = conv_blocks_masked(params["blocks"][1:], x, valid, tail)
+    return {"frame_embs": x.mean(dim=3), "frame_embs_lens": valid.to(torch.int32)}
 
 
 def wavegram_logmel128_cnn14_apply(

@@ -46,11 +46,14 @@ FRONTENDS = (
     "resample_mean_gammatonegram",
 )
 
-# the PANN encoder of each Cnn frontend (build_pann_model's names)
+# the PANN encoder of each PANN packing frontend (build_pann_model's
+# names); conette-prepare packs them all, and get_frontend the Cnn family's
+# (resample_mean_wavegram_logmel_cnn14 has no JAX twin)
 PANN_FRONTENDS = {
     "resample_mean_cnn10": "Cnn10",
     "resample_mean_cnn14": "Cnn14",
     "resample_mean_cnn14_att": "Cnn14_DecisionLevelAtt",
+    "resample_mean_wavegram_logmel_cnn14": "Wavegram_Logmel_Cnn14",
 }
 
 

@@ -16,9 +16,11 @@ Counterpart of ``conette_tpu/prepare.py`` (reference ``main_prepare``,
   ``resample_mean_convnext`` (resample → channel mean → log-mel →
   ConvNeXt-Tiny frame embeddings) in batches through the preprocessor's
   captured encoder programs; ``resample_mean_cnn10`` /
-  ``cnn14`` / ``cnn14_att`` (PANNs' Cnn10, Cnn14, Cnn14_DecisionLevelAtt),
+  ``cnn14`` / ``cnn14_att`` (PANNs' Cnn10, Cnn14, Cnn14_DecisionLevelAtt)
+  and ``resample_mean_wavegram_logmel_cnn14`` (PANNs' Wavegram_Logmel_Cnn14),
   each batch of files loaded on the native loader's pool and encoded as one
-  length-masked batch (``models/pann.py::pann_frames_masked``);
+  length-masked batch (``models/pann.py::pann_frames_masked``,
+  ``models/pann_zoo.py::wavegram_logmel_cnn14_frames_masked``);
 - ``--debug`` re-encodes one random item and compares it with its packed row
   (reference ``prepare.py:485-545``).
 
@@ -33,7 +35,10 @@ batch's ``load_ahead`` on a thread of its own (the loader's
 around each wait for one, ``pann_encode``
 (``rows``, ``padded_frames``) and ``pack_collect`` (the rows' copy to the
 host), with the counters ``pann_valid_frames`` and ``pann_pad_frames``, the
-mel frames computed inside and past the rows' lengths; ``pack_write``
+mel frames computed inside and past the rows' lengths; for
+Wavegram_Logmel_Cnn14, a ``wavegram`` span (``rows``, ``samples``) inside
+each ``pann_encode`` around its waveform branch, with the counters
+``wavegram_valid_samples`` and ``wavegram_pad_samples``; ``pack_write``
 around the HDF write.
 """
 
@@ -218,12 +223,15 @@ class ConvNeXtFrontend:
 class PannFrontend:
     """The offline ``resample_mean_cnn10`` / ``resample_mean_cnn14`` /
     ``resample_mean_cnn14_att`` transforms (reference
-    ``src/conette/transforms/get.py:64-237``): a batch's files decoded,
+    ``src/conette/transforms/get.py:64-237``) and
+    ``resample_mean_wavegram_logmel_cnn14``: a batch's files decoded,
     averaged over their channels and resampled to 32 kHz on the native
     loader's pool (in-memory clips resampled on it), zero-padded to a length
     bucket, and encoded on ``device`` as one length-masked batch
-    (``models/pann.py::pann_frames_masked``): (T', C) f32 frame embeddings
-    a clip, each what the encoder gives the clip alone. A batch of more than
+    (``models/pann.py::pann_frames_masked``, or for Wavegram_Logmel_Cnn14
+    ``models/pann_zoo.py::wavegram_logmel_cnn14_frames_masked``): (T', C)
+    f32 frame embeddings a clip, each what the encoder gives the clip
+    alone. A batch of more than
     ``MAX_ROWS`` files is encoded ``MAX_ROWS`` at a time (the config mode's
     ``data.bsize`` is 512; 32 rows of 30 s hold 1.57 GB in each of block 1's
     activations). Without ``encoder_params``, the architecture's random
@@ -239,8 +247,9 @@ class PannFrontend:
         from conette_torch.weights import to_torch
 
         self.device = resolve_device(device)
+        self.arch = PANN_FRONTENDS[name]
         if encoder_params is None:
-            encoder_params = build_pann_model(PANN_FRONTENDS[name], torch.Generator().manual_seed(seed))[0]
+            encoder_params = build_pann_model(self.arch, torch.Generator().manual_seed(seed))[0]
         self.params = to_torch(encoder_params, self.device)
         self._staging: torch.Tensor | None = None
 
@@ -278,6 +287,7 @@ class PannFrontend:
     def encode(self, monos: list[np.ndarray]) -> list[np.ndarray]:
         from conette_torch.huggingface.preprocessor import bucket_length
         from conette_torch.models.pann import PANN_LOGMEL, pann_frames_masked
+        from conette_torch.models.pann_zoo import wavegram_logmel_cnn14_frames_masked
 
         lens = [len(m) for m in monos]
         samples = bucket_length(max(lens))
@@ -287,7 +297,9 @@ class PannFrontend:
         host = self.stage(monos, samples)
         with span("pann_encode", rows=len(monos), padded_frames=computed):
             wave = host.to(self.device, non_blocking=True)
-            out = pann_frames_masked(self.params, wave, torch.tensor(lens))
+            forward = (wavegram_logmel_cnn14_frames_masked if self.arch == "Wavegram_Logmel_Cnn14"
+                       else pann_frames_masked)
+            out = forward(self.params, wave, torch.tensor(lens))
             count("pann_valid_frames", valid)
             count("pann_pad_frames", computed - valid)
         with span("pack_collect"):
@@ -526,8 +538,9 @@ def main_prepare_config(argv: list[str], device: torch.device | str | None = Non
 
     Composes ``conf/prepare.yaml``, downloads through aac-datasets where
     asked, and packs each subset with the frontend of ``audio_t._target_``
-    (``audio_t=resample_mean_cnn14``: Cnn14, its ``pretrain_path`` through
-    the PANN registry) on ``device`` (else the config's ``device``, else the
+    (``audio_t=resample_mean_cnn14``: Cnn14, or
+    ``audio_t=resample_mean_wavegram_logmel_cnn14``: Wavegram_Logmel_Cnn14,
+    its ``pretrain_path`` through the PANN registry) on ``device`` (else the config's ``device``, else the
     card)."""
     from conette_torch.config import load_config
     from conette_torch.huggingface.model import resolve_device
@@ -613,7 +626,8 @@ def get_prepare_args(argv: Optional[list[str]] = None):
     parser.add_argument("--out_dir", type=str, default="data/HDF")
     parser.add_argument("--audio_t", type=str, default="resample_mean_convnext",
                         help="The packing encoder: resample_mean_convnext, resample_mean_cnn10, "
-                             "resample_mean_cnn14 or resample_mean_cnn14_att.")
+                             "resample_mean_cnn14, resample_mean_cnn14_att or "
+                             "resample_mean_wavegram_logmel_cnn14.")
     parser.add_argument("--encoder", type=str, default=None,
                         help="Registry name (e.g. cnext_bl_75, Cnn14) or params.npz path.")
     parser.add_argument("--batch_size", type=int, default=8)
